@@ -13,7 +13,8 @@ Phases, each printing JSON lines:
                every surveyed call and at edge cases, in fp32 and bf16, with
                the stated tolerances; kernel, plain and library-call times
                (CUDA events, cold L2, median of 20 runs) beside the bound for
-               the same work;
+               the same work, where the library call of the triangle and OPM
+               kernels is the cuBLAS composition the port ran before them;
   5. serve   — ``FastFold(FULL).serve`` on three requests at full width
                (48 blocks, n_recycle = 3) with every weight randomised from
                a seed, after an uncounted warm-up pass at each shape: outputs
@@ -41,16 +42,26 @@ SEED = 0
 # Tolerances, kernel vs plain version on the same inputs on the card:
 # max|kernel - plain| <= TOL * max(1, max|plain|). fp32: the same function
 # summed in another order (attention sums D and Skv terms in another order
-# than the plain version's GEMMs). bf16: one rounding of the output is
+# than the plain version's GEMMs; the triangle and OPM kernels sum k, s, C
+# and C^2 terms in another order). bf16: one rounding of the output is
 # 2**-8 relative, and attention rounds p before its PV product at a
 # different point (unnormalised, see the kernel's note) than the plain
-# version (normalised).
+# version (normalised); the triangle's y and the OPM's ov are rounded to
+# bf16 before their second product, so a sum landing on the other side of
+# a rounding boundary moves the result by a bf16 ulp of an operand.
 TOL = {
     "layer_norm": {"float32": 1e-5, "bfloat16": 1e-2},
     "bias_sigmoid_mul": {"float32": 1e-5, "bfloat16": 1e-2},
     "flash_attention_fwd": {"float32": 1e-4, "bfloat16": 2e-2},
+    "triangle_mult": {"float32": 1e-4, "bfloat16": 2e-2},
+    "outer_product_mean": {"float32": 1e-4, "bfloat16": 2e-2},
 }
+# Attention's lse: an fp32 sum. The triangle's LN mean and inv: fp32 sums
+# of products of the compute dtype's operands, so in bf16 one gated a
+# element rounding to the neighbouring bf16 value moves them by up to a bf16
+# ulp of that term, as it moves the output.
 LSE_TOL = 1e-4
+STATS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Whole forward, fp32, card (kernels) vs CPU (plain versions), 2 blocks:
 # max|card - cpu| <= E2E_TOL * max(1, max|cpu|), coordinates taken over the
 # real residues of a padded request.
@@ -67,6 +78,10 @@ SOURCES = {
                          "src/repro/kernels/fused_elementwise.py:43"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention_fwd.cu",
                             "src/repro/kernels/flash_attention.py:128"),
+    "triangle_mult": ("src/repro_torch/csrc/triangle_mult.cu",
+                      "src/repro/kernels/triangle.py:149"),
+    "outer_product_mean": ("src/repro_torch/csrc/outer_product_mean.cu",
+                           "src/repro/kernels/triangle.py:424"),
 }
 
 
@@ -177,7 +192,8 @@ def survey_phase(torch, tree, batches):
     seen = {k: {} for k in TOL}
     where = [None]
     orig = (ops.layer_norm_cuda, ops.bias_sigmoid_mul_cuda,
-            ops.flash_attention_cuda)
+            ops.flash_attention_cuda, ops.fused_triangle_cuda,
+            ops.fused_opm_cuda)
 
     def ln(x, gamma, beta, eps=1e-5):
         seen["layer_norm"].setdefault(
@@ -195,8 +211,24 @@ def survey_phase(torch, tree, batches):
              mask is not None, str(q.dtype)[6:]), where[0])
         return orig[2](q, k, v, bias, mask, scale)
 
+    def tri(a_lin, ga, mask, b_full, *rest):
+        # a_lin/ga lie in memory as column halves of one projection; the
+        # mask of the incoming update is a transposed view.
+        seen["triangle_mult"].setdefault(
+            (tuple(a_lin.shape), a_lin.stride(), mask.stride(),
+             b_full.shape[1], rest[3].shape[-1], str(a_lin.dtype)[6:]),
+            where[0])
+        return orig[3](a_lin, ga, mask, b_full, *rest)
+
+    def opm(a, b_full, mask_a, mask_b, w, bias):
+        seen["outer_product_mean"].setdefault(
+            (tuple(a.shape), b_full.shape[2], w.shape[-1], str(a.dtype)[6:]),
+            where[0])
+        return orig[4](a, b_full, mask_a, mask_b, w, bias)
+
     ops.layer_norm_cuda, ops.bias_sigmoid_mul_cuda = ln, bsm
-    ops.flash_attention_cuda = attn
+    ops.flash_attention_cuda, ops.fused_triangle_cuda = attn, tri
+    ops.fused_opm_cuda = opm
     try:
         done = set()
         for (name, kw), batch in zip(REQUESTS, batches):
@@ -208,7 +240,8 @@ def survey_phase(torch, tree, batches):
         torch.cuda.synchronize()
     finally:
         (ops.layer_norm_cuda, ops.bias_sigmoid_mul_cuda,
-         ops.flash_attention_cuda) = orig
+         ops.flash_attention_cuda, ops.fused_triangle_cuda,
+         ops.fused_opm_cuda) = orig
     emit({"phase": "survey", "cut": {"n_blocks": 1, "n_recycle": 0},
           "distinct_calls": {k: len(v) for k, v in seen.items()}})
     return seen
@@ -223,6 +256,7 @@ def kernel_phase(torch, timer, seen):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_elementwise import bias_sigmoid_mul_cuda
     from repro_torch.kernels.layer_norm import layer_norm_cuda
+    from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -343,11 +377,120 @@ def kernel_phase(torch, timer, seen):
                         "mask": wm, "fully_masked_rows": n_masked if wm else 0,
                         "lse_max_rel_err": lse_rel})
 
+    def strided(shape, stride, dt, scale=1.0):
+        """A view of the given shape and strides into a random buffer."""
+        numel = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+        return randn((numel,), dt, scale).as_strided(shape, stride)
+
+    # --- K7 fused triangular multiplicative update. a_lin and ga lie in
+    # memory as the main path lays them out (column halves of a merged
+    # projection), and so does the mask (a transposed view for the incoming
+    # update); masked_rows rows i of a are masked at every k.
+    def check_tri(case, a_shape, a_stride, m_stride, nj, d, dt, main,
+                  masked_rows=0):
+        bsz, ni, nk, c = a_shape
+        a_lin = strided(a_shape, a_stride, dt)
+        ga = strided(a_shape, a_stride, dt, 2.0)
+        keep = torch.rand((bsz, ni, nk), generator=gen, device="cuda") < 0.9
+        keep[:, :masked_rows] = False
+        mask = strided((bsz, ni, nk), m_stride, "float32")
+        mask.copy_(keep.float())
+        b_full = randn((bsz, nj, nk, c), dt)
+        gamma, beta = randn((c,), "float32", 0.1, 1.0), randn((c,), "float32", 0.1)
+        w_out = randn((c, d), "float32", c ** -0.5)
+        b_out, g_bias = randn((d,), "float32", 0.1), randn((d,), "float32")
+        g_lin = randn((bsz, ni, nj, d), dt, 2.0)
+        args = (a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
+                g_bias)
+        out, mean, inv = fused_triangle_cuda(*args)
+        want, want_mean, want_inv = ref.triangle_mult_ref(*args)
+        stats = {}
+        for name, got_s, want_s in (("mean", mean, want_mean),
+                                    ("inv", inv, want_inv)):
+            stats[f"{name}_max_rel_err"] = rel_err(got_s, want_s)[1]
+            if stats[f"{name}_max_rel_err"] > STATS_TOL[dt]:
+                fail(f"triangle_mult {case} {dt}: {name} error "
+                     f"{stats[f'{name}_max_rel_err']:.3g}")
+        timing = None
+        if main:
+            # The library yardstick is the cuBLAS composition the port ran
+            # before this kernel: einsum (permute + bmm), F.layer_norm,
+            # F.linear and the gate, with the weights cast beforehand.
+            tdt = dts[dt]
+            g_l, be_l = gamma.to(tdt), beta.to(tdt)
+            w_t, bo_l, gb_l = w_out.t().contiguous().to(tdt), b_out.to(tdt), g_bias.to(tdt)
+
+            def composition():
+                a = torch.sigmoid(ga) * a_lin * mask[..., None].to(tdt)
+                o = torch.einsum("bikc,bjkc->bijc", a, b_full)
+                y = F.layer_norm(o, (c,), g_l, be_l)
+                return torch.sigmoid(g_lin + gb_l) * F.linear(y, w_t, bo_l)
+
+            t_b, by = bound(nbytes(a_lin, ga, *args[2:], out, mean, inv),
+                            2.0 * bsz * ni * nj * c * (nk + d), dt)
+            timing = {
+                "ms": timer(lambda: fused_triangle_cuda(*args)),
+                "plain_ms": timer(lambda: ref.triangle_mult_ref(*args)),
+                "library_ms": timer(composition),
+                "library_call": "cuBLAS composition: einsum (permute + bmm) "
+                                "+ F.layer_norm + F.linear + gate",
+                "bound_ms": t_b, "bound_by": by}
+        record("triangle_mult", case, dt, (bsz, ni, nj, nk, c, d), out, want,
+               timing, {"main_path": main, "a_stride": list(a_stride),
+                        "mask_stride": list(m_stride),
+                        "fully_masked_rows": masked_rows, **stats})
+
+    # --- K8 fused outer-product-mean. a and b are masked by the MSA mask,
+    # which also masks n_masked MSA rows and the last residue entirely.
+    def check_opm(case, a_shape, nj, d, dt, main, n_masked=0):
+        bsz, ns, ni, c = a_shape
+        nr = max(ni, nj)
+        mask = (torch.rand((bsz, ns, nr), generator=gen, device="cuda")
+                < 0.9).float()
+        mask[:, :n_masked] = 0.0
+        mask[..., nr - 1] = 0.0
+        mask_a, mask_b = mask[..., :ni].contiguous(), mask[..., :nj].contiguous()
+        tdt = dts[dt]
+        a = randn(a_shape, dt) * mask_a[..., None].to(tdt)
+        b_full = randn((bsz, ns, nj, c), dt) * mask_b[..., None].to(tdt)
+        w = randn((c * c, d), dt, 1.0 / c)
+        bias = randn((d,), "float32")
+        args = (a, b_full, mask_a, mask_b, w, bias)
+        out = fused_opm_cuda(*args)
+        want = ref.outer_product_mean_ref(*args)
+        timing = None
+        if main:
+            # The library yardstick is the cuBLAS composition the port ran
+            # before this kernel: einsum (permute + bmm) for the outer
+            # product and the norm, the fp32 divide, then F.linear.
+            w_t, b_l = w.t().contiguous(), bias.to(tdt)
+
+            def composition():
+                o = torch.einsum("bsic,bsjd->bijcd", a, b_full)
+                norm = torch.einsum("bsi,bsj->bij", mask_a, mask_b)
+                o = (o.float() / (norm[..., None, None] + 1e-3)).to(tdt)
+                return F.linear(o.reshape(o.shape[:3] + (c * c,)), w_t, b_l)
+
+            t_b, by = bound(nbytes(*args, out),
+                            2.0 * bsz * ni * nj * ns * (c * c + 1)
+                            + 2.0 * bsz * ni * nj * c * c * d, dt)
+            timing = {
+                "ms": timer(lambda: fused_opm_cuda(*args)),
+                "plain_ms": timer(lambda: ref.outer_product_mean_ref(*args)),
+                "library_ms": timer(composition),
+                "library_call": "cuBLAS composition: einsum (permute + bmm) "
+                                "+ fp32 divide + F.linear",
+                "bound_ms": t_b, "bound_by": by}
+        record("outer_product_mean", case, dt, (bsz, ns, ni, nj, c, d), out,
+               want, timing, {"main_path": main,
+                              "fully_masked_rows": n_masked})
+
     # Every main-path signature in its own dtype (timed), then in the other
     # dtype where the main path has no such call itself.
     checks = {"layer_norm": check_ln, "bias_sigmoid_mul": check_bsm,
               "flash_attention_fwd": lambda case, *a: check_attn(
-                  case, *a[:-2], 2, *a[-2:])}
+                  case, *a[:-2], 2, *a[-2:]),
+              "triangle_mult": check_tri, "outer_product_mean": check_opm}
     for kernel, calls in seen.items():
         for sig, req in calls.items():
             checks[kernel](f"{req} main path", *sig, True)
@@ -375,6 +518,21 @@ def kernel_phase(torch, timer, seen):
                 ("head_dim16", 4, 40, 40, 2, 16, 4, False, 0)]:
             check_attn(case, qkv_layout(n, sq, skv, h, d), nb, wm, nm, dt,
                        False)
+        # (case, B, I, J, K, C, D, fully masked rows): ragged against the
+        # 16-pixel tile, I != J, MINI widths, C != D; the contiguous layout.
+        for case, bsz, ni, nj, nk, c, d, nm in [
+                ("ragged_ijk", 1, 37, 45, 29, 128, 128, 3),
+                ("mini_widths", 2, 24, 20, 33, 32, 32, 1),
+                ("c_ne_d", 1, 16, 16, 40, 32, 128, 0)]:
+            check_tri(case, (bsz, ni, nk, c),
+                      (ni * nk * c, nk * c, c, 1), (ni * nk, nk, 1), nj, d,
+                      dt, False, nm)
+        # (case, B, S, I, J, C, D, fully masked MSA rows)
+        for case, bsz, ns, ni, nj, c, d, nm in [
+                ("ragged_sij", 1, 37, 21, 19, 32, 128, 2),
+                ("mini_widths", 2, 40, 30, 26, 16, 32, 1),
+                ("c16_d128", 1, 8, 20, 20, 16, 128, 0)]:
+            check_opm(case, (bsz, ns, ni, c), nj, d, dt, False, nm)
     return results
 
 
@@ -383,14 +541,17 @@ def kernel_phase(torch, timer, seen):
 # ---------------------------------------------------------------------------
 
 def expected_launches(cfg, passes: int) -> dict[str, int]:
-    """Launches per forward from the config: per Evoformer block 12
-    LayerNorms, 6 gates (4 attention + 2 triangle) and 4 attentions; per pass
-    2 LayerNorms in recycling and 2 + 2 per iteration in the structure
-    module."""
+    """Launches per forward from the config: per Evoformer block 10
+    LayerNorms, 4 attention gates, 4 attentions, 2 fused triangle updates
+    and 1 fused OPM (the triangles' output LN and gate run inside their
+    kernel); per pass 2 LayerNorms in recycling and 2 + 2 per iteration in
+    the structure module."""
     nb, ni = cfg.evoformer.n_blocks, cfg.structure.n_iterations
-    return {"layer_norm": passes * (12 * nb + 2 + 2 + 2 * ni),
-            "bias_sigmoid_mul": passes * 6 * nb,
-            "flash_attention_fwd": passes * 4 * nb}
+    return {"layer_norm": passes * (10 * nb + 2 + 2 + 2 * ni),
+            "bias_sigmoid_mul": passes * 4 * nb,
+            "flash_attention_fwd": passes * 4 * nb,
+            "triangle_mult": passes * 2 * nb,
+            "outer_product_mean": passes * nb}
 
 
 def init_phase(torch):
@@ -613,6 +774,7 @@ def main() -> int:
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
+            "library_call": top.get("library_call"),
             "shape": top["shape"], "dtype": top["dtype"], "case": top["case"]})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -43,7 +43,8 @@ from repro_torch.weights import (params_from_numpy, params_to_numpy,
                                  randomize_tree)
 
 PORT_KERNELS = ("layer_norm_kernel", "bias_sigmoid_mul_kernel",
-                "flash_fwd_kernel")
+                "flash_fwd_kernel", "triangle_mult_mma_kernel",
+                "outer_product_mean_mma_kernel")
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone"}

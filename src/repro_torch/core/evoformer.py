@@ -6,10 +6,12 @@ an axis swap, and the async overlap window is the identity. The four
 attention sites (MSA row with pair bias, MSA column, triangle start and end
 with pair bias) go through ``ops.fused_attention`` — the flash-attention
 kernel on the card. Every LayerNorm goes through the LayerNorm kernel and
-every output gate through the gating kernel. Both triangular multiplicative
-updates and the outer-product-mean take the materialized paths the
-reference runs under its ``triangle-oracle`` plan preset, in plain torch;
-their fused kernels are not ported yet. There is no remat and no dropout:
+every attention output gate through the gating kernel. Both triangular
+multiplicative updates and the outer-product-mean take the reference's
+default (fused) branch: ``ops.fused_triangle_mult`` and
+``ops.fused_outer_product_mean``, the fused triangle and OPM kernels on the
+card, so neither the (B, r, r, c) triangle product nor the (B, r, r, c, c)
+outer product is ever a whole tensor. There is no remat and no dropout:
 this is the inference forward.
 """
 from __future__ import annotations
@@ -148,35 +150,33 @@ def msa_transition(p, msa):
 
 
 def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig):
-    """msa (B, s, r, Hm) -> pair update (B, r, r, Hz), materialized: the
-    (B, r, r, c, c) outer product is a whole tensor."""
-    c = cfg.opm_dim
+    """msa (B, s, r, Hm) -> pair update (B, r, r, Hz): the masked merged
+    projection, then the fused outer product, mask norm and c²→Hz
+    projection."""
     m_n = layer_norm(p["ln"], msa)
     ab = dense(p["proj"], m_n)                   # merged GEMM (B, s, r, 2c)
     a, bproj = torch.chunk(ab, 2, dim=-1)
     mask = msa_mask[..., None].to(a.dtype)
     a = a * mask
     bproj = bproj * mask
-    o = torch.einsum("bsic,bsjd->bijcd", a, bproj)           # (B, r, r, c, c)
-    norm = torch.einsum("bsi,bsj->bij", msa_mask, msa_mask)
-    o = (o.float() / (norm[..., None, None] + 1e-3)).to(a.dtype)
-    o = o.reshape(o.shape[:3] + (c * c,))
-    return dense(p["out"], o)                    # (B, r, r, Hz)
+    return ops.fused_outer_product_mean(a, bproj, msa_mask, msa_mask,
+                                        p["out"]["w"], p["out"]["b"])
 
 
 def triangle_mult_core(p, z_src, pair_mask):
-    """The gated triangular multiplicative update in ``z_src`` coords,
-    materialized: gated projections and the (B, r, r, c) product as whole
-    tensors, then LN -> projection -> output gate."""
+    """The gated triangular multiplicative update in ``z_src`` coords
+    (already LN'ed): the b half is gated and masked here, the a half's
+    gating, the k-product, the output LN, projection and gate run fused."""
     ab = dense(p["proj"], z_src)                 # (B, r, k, 2c) merged
     g = dense(p["gate"], z_src)
     g_lin = z_src @ p["gate_out"]["w"].to(z_src.dtype)
-    ab = ab * torch.sigmoid(g.float()).to(ab.dtype)
-    ab = ab * pair_mask[..., None].to(ab.dtype)
-    a, bm = torch.chunk(ab, 2, dim=-1)
-    o = torch.einsum("bikc,bjkc->bijc", a, bm)   # (B, r, r, c)
-    upd = dense(p["out"], layer_norm(p["ln_out"], o))
-    return ops.bias_sigmoid_mul(g_lin, p["gate_out"]["b"], upd)
+    a_lin, b_lin = torch.chunk(ab, 2, dim=-1)
+    ga, gb = torch.chunk(g, 2, dim=-1)
+    bm = (b_lin.float() * torch.sigmoid(gb.float())).to(ab.dtype)
+    bm = bm * pair_mask[..., None].to(ab.dtype)
+    return ops.fused_triangle_mult(
+        a_lin, ga, pair_mask, bm, p["ln_out"]["gamma"], p["ln_out"]["beta"],
+        p["out"]["w"], p["out"]["b"], g_lin, p["gate_out"]["b"])
 
 
 def triangle_mult_outgoing(p, pair, pair_mask):

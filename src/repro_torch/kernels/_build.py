@@ -51,10 +51,26 @@ SIGNATURES = {
         _c_ll, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,     # q/k/v strides (n, s)
         _c_int, _c_int, _c_int, _c_int, _c_int,       # N, Sq, Skv, H, D
         _c_int, _c_float, _c_int, _c_void_p]),        # rep, scale, dtype, stream
+    "triangle_mult": ("triangle_mult_fwd", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # a_lin, ga, mask, b
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # gamma, beta, w_out, b_out
+        _c_void_p, _c_void_p,                         # g_lin, g_bias
+        _c_void_p, _c_void_p, _c_void_p,              # out, mean, inv
+        _c_ll, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,     # a_lin, ga strides (b, i, k)
+        _c_ll, _c_ll, _c_ll,                          # mask strides (b, i, k)
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,   # B, I, J, K, C, D
+        _c_float, _c_int, _c_void_p]),                # eps, dtype, stream
+    "outer_product_mean": ("outer_product_mean_fwd", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # a, b, mask_a, mask_b
+        _c_void_p, _c_void_p, _c_void_p,              # w, bias, out
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,   # B, S, I, J, C, D
+        _c_int, _c_void_p]),                          # dtype, stream
 }
 
 # The kernels' dtype argument.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The largest y or z extent of a CUDA launch grid.
+MAX_GRID_YZ = 65535
 
 _lock = threading.Lock()
 _entries: dict = {}   # name -> typed ctypes function; keeps its library loaded

@@ -15,7 +15,6 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32)        # the Evoformer's head dim in MINI and FULL
-MAX_GRID_YZ = 65535
 
 
 def _check_qkv(name: str, t: torch.Tensor, n: int, h: int, d: int):
@@ -43,7 +42,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv = k.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
-    if n > MAX_GRID_YZ or h > MAX_GRID_YZ or skv == 0:
+    if n > _build.MAX_GRID_YZ or h > _build.MAX_GRID_YZ or skv == 0:
         raise ValueError(f"flash_attention_cuda: N={n}, H={h}, Skv={skv} outside "
                          "the kernel's grid")
     _check_qkv("q", q, n, h, d)

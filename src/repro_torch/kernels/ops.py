@@ -14,6 +14,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_elementwise import bias_sigmoid_mul_cuda
 from repro_torch.kernels.layer_norm import layer_norm_cuda
+from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -82,6 +83,49 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bias is not None and bias.ndim == 3:
         bias = bias[None]
     return _attention(q, k, v, bias, mask, scale)
+
+
+def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
+                        mask: torch.Tensor, b_full: torch.Tensor,
+                        gamma: torch.Tensor, beta: torch.Tensor,
+                        w_out: torch.Tensor, b_out: torch.Tensor,
+                        g_lin: torch.Tensor, g_bias: torch.Tensor, *,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """sigmoid(g_lin + g_bias) * (LN_C(sum_k (a_lin·σ(ga)·mask) ⊙ b_full)
+    @ w_out + b_out), the (B, I, J, C) product never in memory.
+
+    a_lin, ga: (B, I, K, C); mask: (B, I, K); b_full: (B, J, K, C) gated and
+    masked; gamma, beta: (C,); w_out: (C, D); b_out, g_bias: (D,); g_lin:
+    (B, I, J, D). Returns (B, I, J, D) in g_lin's dtype.
+    """
+    if not _on_card(a_lin, "fused_triangle_mult"):
+        return ref.triangle_mult_ref(a_lin, ga, mask, b_full, gamma, beta,
+                                     w_out, b_out, g_lin, g_bias, eps)[0]
+    # a_lin and ga go in as they lie (the column halves of the merged
+    # projections); the kernel reads the mask through its strides.
+    f32 = lambda t: t.float().contiguous()
+    return fused_triangle_cuda(
+        a_lin, ga, mask.float(), b_full.contiguous(), f32(gamma), f32(beta),
+        f32(w_out), f32(b_out), g_lin.contiguous(), f32(g_bias), eps)[0]
+
+
+def fused_outer_product_mean(a: torch.Tensor, b_full: torch.Tensor,
+                             mask_a: torch.Tensor, mask_b: torch.Tensor,
+                             w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """(vec(sum_s a_si ⊗ b_sj) / (sum_s mask_a·mask_b + 1e-3)) @ w + bias,
+    the (B, I, J, C, C) outer product never in memory.
+
+    a: (B, S, I, C), b_full: (B, S, J, C) masked; mask_a: (B, S, I),
+    mask_b: (B, S, J); w: (C*C, D), bias: (D,). Returns (B, I, J, D) in a's
+    dtype.
+    """
+    if not _on_card(a, "fused_outer_product_mean"):
+        return ref.outer_product_mean_ref(a, b_full, mask_a, mask_b, w, bias)
+    return fused_opm_cuda(a.contiguous(), b_full.contiguous(),
+                          mask_a.float().contiguous(),
+                          mask_b.float().contiguous(),
+                          w.to(a.dtype).contiguous(),
+                          bias.float().contiguous())
 
 
 def bias_dropout_add(x: torch.Tensor, b: torch.Tensor | None,

@@ -60,3 +60,53 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("nhqk,nkhd->nqhd", probs.float(), v.float()).to(q.dtype)
     lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
     return out, lse
+
+
+def triangle_mult_ref(a_lin: torch.Tensor, ga: torch.Tensor,
+                      mask: torch.Tensor, b_full: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor,
+                      w_out: torch.Tensor, b_out: torch.Tensor,
+                      g_lin: torch.Tensor, g_bias: torch.Tensor,
+                      eps: float = 1e-5):
+    """The fused triangular multiplicative update, materialized.
+
+    a_lin, ga: (B, I, K, C); mask: (B, I, K); b_full: (B, J, K, C) gated
+    and masked; gamma, beta: (C,); w_out: (C, D); b_out, g_bias: (D,);
+    g_lin: (B, I, J, D) output-gate logits before their bias.
+
+    out = sigmoid(g_lin + g_bias) * (LN_C(sum_k a ⊙ b) @ w_out + b_out) with
+    a = (a_lin * sigmoid(ga)).to(dt) * mask: fp32 product and two-pass LN
+    statistics, y cast to dt before the w_out product (fp32 accumulation),
+    bias and gate in fp32, one cast at the end. Returns (out in g_lin's
+    dtype, mean (B, I, J) fp32, inv = rsqrt(var + eps) (B, I, J) fp32).
+    """
+    dt = a_lin.dtype
+    a = ((a_lin.float() * torch.sigmoid(ga.float())).to(dt)
+         * mask.to(dt)[..., None])
+    o = torch.einsum("bikc,bjkc->bijc", a.float(), b_full.float())
+    mean = o.mean(dim=-1, keepdim=True)
+    var = (o - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    y = ((o - mean) * inv * gamma.float() + beta.float()).to(dt)
+    z = y.float() @ w_out.to(dt).float() + b_out.float()
+    s = torch.sigmoid(g_lin.float() + g_bias.float())
+    return (s * z).to(g_lin.dtype), mean[..., 0], inv[..., 0]
+
+
+def outer_product_mean_ref(a: torch.Tensor, b_full: torch.Tensor,
+                           mask_a: torch.Tensor, mask_b: torch.Tensor,
+                           w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The fused outer-product-mean, materialized.
+
+    a: (B, S, I, C), b_full: (B, S, J, C) masked; mask_a: (B, S, I),
+    mask_b: (B, S, J); w: (C*C, D), bias: (D,).
+
+    out[b,i,j] = (vec(sum_s a_si ⊗ b_sj) / (norm_ij + 1e-3)) @ w + bias with
+    norm = sum_s mask_a·mask_b: fp32 outer product and norm, ov cast to a's
+    dtype before the C²→D product (fp32 accumulation), output in a's dtype.
+    """
+    o = torch.einsum("bsic,bsjd->bijcd", a.float(), b_full.float())
+    norm = torch.einsum("bsi,bsj->bij", mask_a.float(), mask_b.float())
+    ov = (o / (norm[..., None, None] + 1e-3)).to(a.dtype)
+    out = ov.reshape(ov.shape[:3] + (-1,)).float() @ w.to(a.dtype).float()
+    return (out + bias.float()).to(a.dtype)

@@ -1,0 +1,120 @@
+"""Launch wrappers of the fused triangular multiplicative update
+(``csrc/triangle_mult.cu``) and the fused outer-product-mean
+(``csrc/outer_product_mean.cu``) CUDA kernels.
+
+They replace ``fused_triangle_pallas`` and ``fused_opm_pallas``
+(src/repro/kernels/triangle.py). The wrappers take CUDA tensors only;
+``ops.fused_triangle_mult`` and ``ops.fused_outer_product_mean`` route CPU
+tensors to the plain versions. The kernels choose their own tiles.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+TRI_WIDTHS = (32, 128)      # C and D of the triangle kernel (MINI, FULL)
+OPM_C = (16, 32)            # the OPM's channel width (MINI, FULL)
+OPM_D = (32, 128)           # its output width, the pair width
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype, device, contiguous=True):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or (contiguous and not t.is_contiguous())):
+        raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device} is "
+                         f"not {'a contiguous ' if contiguous else ''}"
+                         f"{tuple(shape)} {dtype} on {device}")
+
+
+def _check_rows(name: str, t: torch.Tensor):
+    """The kernel reads 8 channels at a time: unit channel stride, the other
+    strides multiples of 8 elements, a 16-byte aligned start."""
+    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name}: strides {t.stride()} (offset "
+                         f"{t.storage_offset()}) do not give 16-byte aligned "
+                         "rows of 8 channels")
+
+
+def _check_input(fn: str, t: torch.Tensor):
+    if not t.is_cuda:
+        raise ValueError(f"{fn} needs CUDA tensors, got {t.device}")
+    if t.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{fn}: dtype {t.dtype} not in {tuple(_build.DTYPE_CODES)}")
+
+
+def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
+                        g_lin, g_bias, eps: float = 1e-5):
+    """sigmoid(g_lin + g_bias) * (LN_C(sum_k (a_lin·σ(ga)·mask)[i,k] ⊙ b[j,k])
+    @ w_out + b_out), one kernel.
+
+    a_lin, ga: (B, I, K, C) fp32 or bf16, unit channel stride, other strides
+    multiples of 8; mask: (B, I, K) fp32, any strides; b_full: (B, J, K, C)
+    and g_lin: (B, I, J, D), contiguous, in a_lin's dtype; gamma, beta: (C,),
+    w_out: (C, D), b_out, g_bias: (D,), all fp32 contiguous. C, D in
+    ``TRI_WIDTHS``. Returns (out (B, I, J, D) in a_lin's dtype, mean and inv
+    (B, I, J) fp32)."""
+    fn = "fused_triangle_cuda"
+    _check_input(fn, a_lin)
+    bsz, ni, nk, c = a_lin.shape
+    nj, d = b_full.shape[1], w_out.shape[-1]
+    if c not in TRI_WIDTHS or d not in TRI_WIDTHS:
+        raise ValueError(f"{fn}: channel widths C={c}, D={d} not in {TRI_WIDTHS}")
+    if bsz > _build.MAX_GRID_YZ or -(-ni // 8) > _build.MAX_GRID_YZ:
+        raise ValueError(f"{fn}: B={bsz}, I={ni} outside the kernel's grid")
+    dt, dev, f32 = a_lin.dtype, a_lin.device, torch.float32
+    _check(f"{fn} ga", ga, a_lin.shape, dt, dev, contiguous=False)
+    _check(f"{fn} mask", mask, (bsz, ni, nk), f32, dev, contiguous=False)
+    _check(f"{fn} b_full", b_full, (bsz, nj, nk, c), dt, dev)
+    _check(f"{fn} g_lin", g_lin, (bsz, ni, nj, d), dt, dev)
+    for name, t, shape in (("gamma", gamma, (c,)), ("beta", beta, (c,)),
+                           ("w_out", w_out, (c, d)), ("b_out", b_out, (d,)),
+                           ("g_bias", g_bias, (d,))):
+        _check(f"{fn} {name}", t, shape, f32, dev)
+    _check_rows(f"{fn} a_lin", a_lin)
+    _check_rows(f"{fn} ga", ga)
+    out = torch.empty((bsz, ni, nj, d), dtype=dt, device=dev)
+    mean = torch.empty((bsz, ni, nj), dtype=f32, device=dev)
+    inv = torch.empty((bsz, ni, nj), dtype=f32, device=dev)
+    err = _build.entry("triangle_mult")(
+        a_lin.data_ptr(), ga.data_ptr(), mask.data_ptr(), b_full.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+        g_lin.data_ptr(), g_bias.data_ptr(), out.data_ptr(), mean.data_ptr(),
+        inv.data_ptr(), *a_lin.stride()[:3], *ga.stride()[:3],
+        *mask.stride(), bsz, ni, nj, nk, c, d, float(eps),
+        _build.DTYPE_CODES[dt], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("triangle_mult", err)
+    return out, mean, inv
+
+
+def fused_opm_cuda(a, b_full, mask_a, mask_b, w, bias):
+    """(vec(sum_s a[s,i] ⊗ b[s,j]) / (sum_s mask_a·mask_b + 1e-3)) @ w + bias,
+    one kernel.
+
+    a: (B, S, I, C), b_full: (B, S, J, C), masked, contiguous, fp32 or
+    bf16; mask_a (B, S, I), mask_b (B, S, J) fp32 contiguous; w: (C*C, D)
+    contiguous in a's dtype; bias: (D,) fp32. C in ``OPM_C``, D in
+    ``OPM_D``. Returns (B, I, J, D) in a's dtype."""
+    fn = "fused_opm_cuda"
+    _check_input(fn, a)
+    bsz, ns, ni, c = a.shape
+    nj, d = b_full.shape[2], w.shape[-1]
+    if c not in OPM_C or d not in OPM_D:
+        raise ValueError(f"{fn}: channel widths C={c}, D={d} not in {OPM_C} x "
+                         f"{OPM_D}")
+    if bsz > _build.MAX_GRID_YZ or -(-ni // 4) > _build.MAX_GRID_YZ:
+        raise ValueError(f"{fn}: B={bsz}, I={ni} outside the kernel's grid")
+    dt, dev, f32 = a.dtype, a.device, torch.float32
+    _check(f"{fn} a", a, a.shape, dt, dev)
+    _check(f"{fn} b_full", b_full, (bsz, ns, nj, c), dt, dev)
+    _check(f"{fn} mask_a", mask_a, (bsz, ns, ni), f32, dev)
+    _check(f"{fn} mask_b", mask_b, (bsz, ns, nj), f32, dev)
+    _check(f"{fn} w", w, (c * c, d), dt, dev)
+    _check(f"{fn} bias", bias, (d,), f32, dev)
+    out = torch.empty((bsz, ni, nj, d), dtype=dt, device=dev)
+    err = _build.entry("outer_product_mean")(
+        a.data_ptr(), b_full.data_ptr(), mask_a.data_ptr(), mask_b.data_ptr(),
+        w.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, ns, ni, nj, c, d,
+        _build.DTYPE_CODES[dt], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("outer_product_mean", err)
+    return out

@@ -2,8 +2,9 @@
 SMOKE model (2 blocks, n_recycle=1) on fully randomised weights, served
 through ``FastFold(device="cpu").serve`` for a full-length and a padded
 request, against the reference's ``alphafold_forward`` under
-``preset("triangle-oracle")``. Plus the parameter bridge, the port's own
-initializer and the data generator.
+``preset("default")``, whose fused triangle and OPM branch the port takes.
+Plus the parameter bridge, the port's own initializer and the data
+generator.
 
 The whole-forward comparison is made in fp32 (bound 1e-3 * max(1, max|jax|)).
 In bf16 the two frameworks round at a few different places in each module
@@ -50,7 +51,7 @@ def test_serve_matches_reference(jax_tree):
     outs = ff.serve(params_from_numpy(tree), requests)
     j_cfg = dataclasses.replace(J_SMOKE, compute_dtype=jnp.float32)
     j_params = jax.tree.map(jnp.asarray, tree)
-    with use_plan(preset("triangle-oracle")):
+    with use_plan(preset("default")):
         j_forward = jax.jit(lambda p, b: alphafold_forward(p, b, j_cfg))
         for req, got in zip(requests, outs):
             want = j_forward(j_params, {k: jnp.asarray(v)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +98,75 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
         flash_attention_cuda(q, q, q, None, None, 1.0)
     with pytest.raises(TypeError):
         ops.bias_sigmoid_mul(x.half(), torch.zeros(8, device="cuda"), x.half())
+
+
+def _randn(gen, shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bsz,ni,nj,nk,c,d", [
+    (1, 40, 40, 40, 128, 128),    # FULL widths, ragged against the 16 tile
+    (2, 19, 33, 21, 32, 32),      # MINI widths, I != J
+    (1, 16, 16, 70, 32, 128),     # C != D
+])
+def test_triangle_mult_kernel(gen, bsz, ni, nj, nk, c, d, dtype, tol):
+    # a_lin and ga are column halves of one merged projection, as in the
+    # Evoformer; the mask is a transposed view with two fully masked rows.
+    ab = _randn(gen, (bsz, ni, nk, 2 * c), 1.0, dtype)
+    g = _randn(gen, (bsz, ni, nk, 2 * c), 2.0, dtype)
+    keep = torch.rand((bsz, nk, ni), generator=gen, device="cuda") < 0.8
+    mask = keep.float().transpose(1, 2)
+    mask[:, :2] = 0.0
+    args = (ab[..., :c], g[..., :c], mask, _randn(gen, (bsz, nj, nk, c), 1.0, dtype),
+            1 + _randn(gen, (c,), 0.1), _randn(gen, (c,), 0.1),
+            _randn(gen, (c, d), c ** -0.5), _randn(gen, (d,), 0.1),
+            _randn(gen, (bsz, ni, nj, d), 2.0, dtype), _randn(gen, (d,)))
+    _build.reset_launches()
+    out, mean, inv = fused_triangle_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["triangle_mult"] == 1
+    want, want_mean, want_inv = ref.triangle_mult_ref(*args)
+    _close(out, want, tol)
+    _close(mean, want_mean, tol)     # fp32 sums of operands in the dtype
+    _close(inv, want_inv, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bsz,ns,ni,nj,c,d", [
+    (1, 40, 20, 20, 32, 128),     # FULL widths, ragged S, I and J
+    (2, 33, 35, 17, 16, 32),      # MINI widths
+])
+def test_outer_product_mean_kernel(gen, bsz, ns, ni, nj, c, d, dtype, tol):
+    mask = (torch.rand((bsz, ns, ni), generator=gen, device="cuda") < 0.8).float()
+    mask[:, 1] = 0.0                         # a fully masked MSA row
+    mask[..., 3] = 0.0                       # a residue masked in every row
+    mask_b = mask[..., :nj].contiguous()     # nj <= ni in every case
+    a = _randn(gen, (bsz, ns, ni, c), 1.0, dtype) * mask[..., None].to(dtype)
+    b = (_randn(gen, (bsz, ns, nj, c), 1.0, dtype)
+         * mask_b[..., None].to(dtype))
+    w = _randn(gen, (c * c, d), 1.0 / c, dtype)
+    bias = _randn(gen, (d,))
+    _build.reset_launches()
+    out = fused_opm_cuda(a, b, mask, mask_b, w, bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["outer_product_mean"] == 1
+    _close(out, ref.outer_product_mean_ref(a, b, mask, mask_b, w, bias), tol)
+    _close(out[:, 3], bias.to(dtype).expand_as(out[:, 3]), 0.0)
+
+
+def test_triangle_and_opm_refuse_other_widths(gen):
+    x = _randn(gen, (1, 8, 8, 64))
+    with pytest.raises(ValueError, match="channel widths"):
+        fused_triangle_cuda(x, x, torch.ones((1, 8, 8), device="cuda"), x,
+                            torch.ones(64, device="cuda"),
+                            torch.zeros(64, device="cuda"),
+                            _randn(gen, (64, 64)), torch.zeros(64, device="cuda"),
+                            x, torch.zeros(64, device="cuda"))
+    a = _randn(gen, (1, 4, 8, 64))
+    with pytest.raises(ValueError, match="channel widths"):
+        fused_opm_cuda(a, a, torch.ones((1, 4, 8), device="cuda"),
+                       torch.ones((1, 4, 8), device="cuda"),
+                       _randn(gen, (64 * 64, 128)), torch.zeros(128, device="cuda"))

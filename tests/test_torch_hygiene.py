@@ -19,6 +19,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_elementwise import bias_sigmoid_mul_cuda
 from repro_torch.kernels.layer_norm import layer_norm_cuda
+from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -87,7 +88,24 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     ops.bias_sigmoid_mul(x, torch.zeros(8), x)
     ops.fused_attention(torch.randn(2, 5, 1, 8), torch.randn(2, 5, 1, 8),
                         torch.randn(2, 5, 1, 8))
+    ops.fused_triangle_mult(*_triangle_args())
+    ops.fused_outer_product_mean(*_opm_args())
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+def _triangle_args(c=32, d=32):
+    """CPU arguments of the fused triangle op: B=1, I=J=K=5."""
+    x = torch.randn(1, 5, 5, c)
+    return (x, x, torch.ones(1, 5, 5), x, torch.ones(c), torch.zeros(c),
+            torch.randn(c, d), torch.zeros(d), torch.randn(1, 5, 5, d),
+            torch.zeros(d))
+
+
+def _opm_args(c=16, d=32):
+    """CPU arguments of the fused OPM op: B=1, S=3, I=J=5."""
+    x = torch.randn(1, 3, 5, c)
+    return (x, x, torch.ones(1, 3, 5), torch.ones(1, 3, 5),
+            torch.randn(c * c, d), torch.zeros(d))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -99,6 +117,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.randn(2, 5, 1, 8)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q, None, None, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_triangle_cuda(*_triangle_args())
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_opm_cuda(*_opm_args())
 
 
 def test_build_targets_sm90a_in_ignored_dir():
@@ -112,6 +134,8 @@ def test_build_targets_sm90a_in_ignored_dir():
     assert "build/" in ignored
     sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert sources == set(_build.SIGNATURES)
+    assert sources == {"layer_norm", "bias_sigmoid_mul", "flash_attention_fwd",
+                       "triangle_mult", "outer_product_mean"}
 
 
 FAKE_NVCC = """\

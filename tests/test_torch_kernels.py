@@ -1,6 +1,7 @@
 """The port's kernel entry points (``repro_torch.kernels.ops``) against the
-JAX package: LayerNorm, gating and fused attention, at tiny shapes, in fp32
-and bf16. On the CPU the port runs each kernel's plain PyTorch version; the
+JAX package: LayerNorm, gating, fused attention, the fused triangular
+multiplicative update and the fused outer-product-mean, at tiny shapes, in
+fp32 and bf16. On the CPU the port runs each kernel's plain PyTorch version; the
 reference runs its Pallas kernel in interpret mode (``preset("interpret")``)
 and its jnp oracle (``repro.kernels.ref``). Tolerances: see torch_parity."""
 import numpy as np
@@ -10,6 +11,7 @@ import torch
 from repro.exec.plan import preset, use_plan
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import triangle as jtri
 from repro_torch.kernels import ops, ref
 from torch_parity import MODULE_TOL, assert_close, both, normal
 
@@ -141,3 +143,99 @@ def test_bias_dropout_add_inference():
     assert_close(got, want, 0.0, "residual add")
     with pytest.raises(NotImplementedError):
         ops.bias_dropout_add(xt, torch.zeros(16), rt)
+
+
+# (B, I, J, K, C, D, rows i whose every k is masked)
+TRI_CASES = {
+    "square": (2, 12, 12, 12, 8, 8, ()),
+    "ragged-i-ne-j-masked-row": (2, 11, 13, 9, 8, 16, (3,)),
+    "c-ne-d": (1, 10, 7, 15, 16, 8, ()),
+}
+
+
+def _tri_inputs(rng, bsz, ni, nj, nk, c, d, masked, dtype):
+    mask = (rng.random((bsz, ni, nk)) < 0.8).astype(np.float32)
+    mask[:, list(masked)] = 0.0
+    arrays = {
+        "a_lin": (normal(rng, (bsz, ni, nk, c)), dtype),
+        "ga": (normal(rng, (bsz, ni, nk, c), 2.0), dtype),
+        "mask": (mask, "float32"),
+        "b_full": (normal(rng, (bsz, nj, nk, c)), dtype),
+        "gamma": (1.0 + normal(rng, (c,), 0.1), "float32"),
+        "beta": (normal(rng, (c,), 0.1), "float32"),
+        "w_out": (normal(rng, (c, d), c ** -0.5), "float32"),
+        "b_out": (normal(rng, (d,), 0.1), "float32"),
+        "g_lin": (normal(rng, (bsz, ni, nj, d), 2.0), dtype),
+        "g_bias": (normal(rng, (d,)), "float32"),
+    }
+    j, t = {}, {}
+    for name, (x, dt) in arrays.items():
+        j[name], t[name] = both(x, dt)
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", DT)
+@pytest.mark.parametrize("case", sorted(TRI_CASES))
+def test_fused_triangle_mult(case, dtype):
+    bsz, ni, nj, nk, c, d, masked = TRI_CASES[case]
+    j, t = _tri_inputs(np.random.default_rng(10), bsz, ni, nj, nk, c, d,
+                       masked, dtype)
+    got = ops.fused_triangle_mult(*t.values())
+    assert got.dtype == t["g_lin"].dtype and got.shape == (bsz, ni, nj, d)
+    with use_plan(preset("interpret")):
+        want = jops.fused_triangle_mult(*j.values())
+    assert_close(got, want, MODULE_TOL[dtype], "vs interpret-mode Pallas")
+    assert_close(got, jref.triangle_mult_ref(*j.values()), MODULE_TOL[dtype],
+                 "vs jnp oracle")
+    # The LN statistics the kernel returns for the recompute backward.
+    _, mean, inv = ref.triangle_mult_ref(*t.values())
+    _, want_mean, want_inv = jtri.fused_triangle_pallas(*j.values(),
+                                                        interpret=True)
+    assert_close(mean, want_mean, MODULE_TOL[dtype], "mean")
+    assert_close(inv, want_inv, MODULE_TOL[dtype], "inv")
+    if masked:     # a fully masked a row: LN of zeros, (0 - 0) * rsqrt(eps)
+        assert float(mean[:, list(masked)].abs().max()) == 0.0
+        np.testing.assert_allclose(inv[:, list(masked)].numpy(),
+                                   1e-5 ** -0.5, rtol=1e-6)
+
+
+# (B, S, I, J, C, D, fully masked MSA rows, fully masked residues)
+OPM_CASES = {
+    "square": (2, 6, 12, 12, 8, 16, (), ()),
+    "ragged-i-ne-j-masked": (2, 7, 11, 13, 4, 8, (2,), (5,)),
+    "c-ne-d": (1, 9, 10, 7, 8, 12, (), (0,)),
+}
+
+
+@pytest.mark.parametrize("dtype", DT)
+@pytest.mark.parametrize("case", sorted(OPM_CASES))
+def test_fused_outer_product_mean(case, dtype):
+    bsz, ns, ni, nj, c, d, rows, residues = OPM_CASES[case]
+    rng = np.random.default_rng(11)
+    mask_a = (rng.random((bsz, ns, ni)) < 0.8).astype(np.float32)
+    mask_b = (rng.random((bsz, ns, nj)) < 0.8).astype(np.float32)
+    for m in (mask_a, mask_b):
+        m[:, list(rows)] = 0.0
+        m[..., list(residues)] = 0.0
+    arrays = {
+        "a": (normal(rng, (bsz, ns, ni, c)) * mask_a[..., None], dtype),
+        "b_full": (normal(rng, (bsz, ns, nj, c)) * mask_b[..., None], dtype),
+        "mask_a": (mask_a, "float32"),
+        "mask_b": (mask_b, "float32"),
+        "w": (normal(rng, (c * c, d), 1.0 / c), "float32"),
+        "bias": (normal(rng, (d,)), "float32"),
+    }
+    j, t = {}, {}
+    for name, (x, dt) in arrays.items():
+        j[name], t[name] = both(x, dt)
+    got = ops.fused_outer_product_mean(*t.values())
+    assert got.dtype == t["a"].dtype and got.shape == (bsz, ni, nj, d)
+    with use_plan(preset("interpret")):
+        want = jops.fused_outer_product_mean(*j.values())
+    assert_close(got, want, MODULE_TOL[dtype], "vs interpret-mode Pallas")
+    assert_close(got, jref.outer_product_mean_ref(*j.values()),
+                 MODULE_TOL[dtype], "vs jnp oracle")
+    if residues:   # norm = 0 there: the output is the bias
+        r = residues[0]
+        assert_close(got[:, r], t["bias"].to(got.dtype).expand_as(got[:, r]),
+                     0.0, "masked residue")

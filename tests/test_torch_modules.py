@@ -1,8 +1,10 @@
 """The port's layers and AlphaFold modules against the JAX package on the
 same fully randomised weights (no zero-initialised projection left) and the
 same seeded inputs, at SMOKE widths, in fp32 and bf16. The reference runs
-under ``preset("triangle-oracle")``, whose materialized triangle and OPM
-paths are the ones the port takes. Tolerances: see torch_parity."""
+under ``preset("default")``, whose fused triangle and OPM branch is the one
+the port takes, and the fused sites and one block also under
+``preset("interpret")``, the reference's Pallas kernels in interpret mode.
+Tolerances: see torch_parity."""
 import dataclasses
 
 import jax
@@ -113,7 +115,7 @@ def test_evoformer_submodule(site, dtype, block_params, feats):
     msa_j, msa_t = both(feats["msa"], dtype)
     pair_j, pair_t = both(feats["pair"], dtype)
     mj, mt = _masks(feats)
-    with use_plan(preset("triangle-oracle")):
+    with use_plan(preset("default")):
         want = _run_site(site, jp, msa_j, pair_j, mj, J_EVO, True)
     got = _run_site(site, tp, msa_t, pair_t, mt, T_EVO, False)
     assert got.dtype == msa_t.dtype
@@ -121,17 +123,44 @@ def test_evoformer_submodule(site, dtype, block_params, feats):
 
 
 @pytest.mark.parametrize("dtype", DT)
-def test_evoformer_block(dtype, block_params, feats):
+@pytest.mark.parametrize("site", ["opm", "tri_mult_out", "tri_mult_in"])
+def test_fused_site_vs_interpret(site, dtype, block_params, feats):
+    """The three sites the fused triangle and OPM kernels serve, against the
+    reference's Pallas kernels in interpret mode."""
     jp, tp = block_params
     msa_j, msa_t = both(feats["msa"], dtype)
     pair_j, pair_t = both(feats["pair"], dtype)
     mj, mt = _masks(feats)
-    with use_plan(preset("triangle-oracle")):
-        jm, jz = jevo.evoformer_block(jp, msa_j, pair_j, mj["msa_mask"],
-                                      mj["seq_mask"], mj["pair_mask"],
-                                      dist=LocalDist(), cfg=J_EVO)
-    tm, tz = tevo.evoformer_block(tp, msa_t, pair_t, mt["msa_mask"],
-                                  mt["seq_mask"], mt["pair_mask"], cfg=T_EVO)
+    with use_plan(preset("interpret")):
+        want = _run_site(site, jp, msa_j, pair_j, mj, J_EVO, True)
+    got = _run_site(site, tp, msa_t, pair_t, mt, T_EVO, False)
+    assert_close(got, want, MODULE_TOL[dtype], site)
+
+
+def _blocks(dtype, block_params, feats, plan):
+    jp, tp = block_params
+    msa_j, msa_t = both(feats["msa"], dtype)
+    pair_j, pair_t = both(feats["pair"], dtype)
+    mj, mt = _masks(feats)
+    with use_plan(preset(plan)):
+        want = jevo.evoformer_block(jp, msa_j, pair_j, mj["msa_mask"],
+                                    mj["seq_mask"], mj["pair_mask"],
+                                    dist=LocalDist(), cfg=J_EVO)
+    got = tevo.evoformer_block(tp, msa_t, pair_t, mt["msa_mask"],
+                               mt["seq_mask"], mt["pair_mask"], cfg=T_EVO)
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", DT)
+def test_evoformer_block_vs_interpret(dtype, block_params, feats):
+    (tm, tz), (jm, jz) = _blocks(dtype, block_params, feats, "interpret")
+    assert_close(tm, jm, MODULE_TOL[dtype], "msa")
+    assert_close(tz, jz, MODULE_TOL[dtype], "pair")
+
+
+@pytest.mark.parametrize("dtype", DT)
+def test_evoformer_block(dtype, block_params, feats):
+    (tm, tz), (jm, jz) = _blocks(dtype, block_params, feats, "default")
     assert_close(tm, jm, MODULE_TOL[dtype], "msa")
     assert_close(tz, jz, MODULE_TOL[dtype], "pair")
 
