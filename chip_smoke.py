@@ -18,10 +18,23 @@ Phases, each printing JSON lines:
   5. serve   — ``FastFold(FULL).serve`` on three requests at full width
                (48 blocks, n_recycle = 3) with every weight randomised from
                a seed, after an uncounted warm-up pass at each shape: outputs
-               finite, launch counts equal to the count the config gives;
+               finite, launch counts equal to the count the config gives (no
+               bias-dropout-add and no attention backward);
   6. parity  — the same model cut to 2 blocks and no recycling, in fp32, on
                every served request, once on the card (the kernels) and once
-               with ``device="cpu"`` (the plain versions), held together.
+               with ``device="cpu"`` (the plain versions), held together;
+  7. train   — ``make_train_step(FastFold(FULL).loss_fn)`` on the port's own
+               init: r = 256, s = 128, batch 1, bf16, n_recycle = 3, remat
+               per block, dropout from a seeded generator; three steps, the
+               first uncounted: losses and gradient norms finite, no skipped
+               step, launch counts equal to the count the config gives, warm
+               step time and peak device memory;
+  8. train parity — FULL width cut to 2 blocks, no recycling, no dropout,
+               fp32, randomised weights, r = 128, s = 64: the gradient of
+               every parameter on the card and with ``device="cpu"``, held
+               together.
+The survey (3) also records every kernel call of one training step cut to
+one block, so phase 4 checks the training kernels at the training shapes.
 The last two lines are the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that. It needs the repository's ``src/`` beside it and a CUDA device.
@@ -55,7 +68,13 @@ TOL = {
     "flash_attention_fwd": {"float32": 1e-4, "bfloat16": 2e-2},
     "triangle_mult": {"float32": 1e-4, "bfloat16": 2e-2},
     "outer_product_mean": {"float32": 1e-4, "bfloat16": 2e-2},
+    "flash_attention_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
+    "bias_dropout_add": {"float32": 1e-4, "bfloat16": 1e-2},
 }
+# The attention backward sums S*D terms in another order than the plain
+# version's GEMMs and rounds each output once to the dtype; the
+# bias-dropout-add kernel computes the plain version's fp32 expression and
+# rounds once.
 # Attention's lse: an fp32 sum. The triangle's LN mean and inv: fp32 sums
 # of products of the compute dtype's operands, so in bf16 one gated a
 # element rounding to the neighbouring bf16 value moves them by up to a bf16
@@ -66,6 +85,11 @@ STATS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # max|card - cpu| <= E2E_TOL * max(1, max|cpu|), coordinates taken over the
 # real residues of a padded request.
 E2E_TOL = 1e-3
+# Training, fp32, card vs CPU, 2 blocks: every parameter's gradient within
+# GRAD_TOL * max(1, max|cpu gradient|) of that leaf.
+GRAD_TOL = 1e-3
+# Kernels that only the training step runs.
+TRAIN_KERNELS = ("flash_attention_bwd", "bias_dropout_add")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +106,10 @@ SOURCES = {
                       "src/repro/kernels/triangle.py:149"),
     "outer_product_mean": ("src/repro_torch/csrc/outer_product_mean.cu",
                            "src/repro/kernels/triangle.py:424"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:469"),
+    "bias_dropout_add": ("src/repro_torch/csrc/bias_dropout_add.cu",
+                         "src/repro/kernels/fused_elementwise.py:73"),
 }
 
 
@@ -156,6 +184,19 @@ REQUESTS = [
 ]
 
 
+# The training step's shape: the paper's initial training crop.
+TRAIN_SHAPE = dict(n_seq=128, n_res=256)
+
+
+def train_batches(n: int, **kw) -> list[dict]:
+    """``n`` training batches (batch 1) from a seed."""
+    from repro_torch.data import protein_batches
+
+    shape = dict(TRAIN_SHAPE, **kw)
+    gen = protein_batches(batch=1, seed=SEED + 5, **shape)
+    return [next(gen).as_dict() for _ in range(n)]
+
+
 def _cut(cfg, n_blocks: int):
     return dataclasses.replace(
         cfg, n_recycle=0,
@@ -179,11 +220,14 @@ def survey_phase(torch, tree, batches):
     by wrapping the wrappers ``ops`` calls: one FULL-width forward for each
     request shape, cut to one Evoformer block (every block hands its kernels
     the same shapes) and no recycling (every pass hands them the same
-    shapes). Returns {kernel: {signature: request name}}; these launches
-    happen before the main path's counts are set to 0."""
+    shapes), then one training step of the same cut at the training shape
+    (r = 256, s = 128) with dropout. Returns {kernel: {signature: request
+    name}}; these launches happen before the main path's counts are set to
+    0."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.kernels import ops
+    from repro_torch.train import make_train_step
     from repro_torch.weights import params_from_numpy
 
     ff = FastFold(_cut(FULL, 1))
@@ -191,9 +235,10 @@ def survey_phase(torch, tree, batches):
         tree["evoformer"], 1)), device="cuda")
     seen = {k: {} for k in TOL}
     where = [None]
-    orig = (ops.layer_norm_cuda, ops.bias_sigmoid_mul_cuda,
-            ops.flash_attention_cuda, ops.fused_triangle_cuda,
-            ops.fused_opm_cuda)
+    names = ("layer_norm_cuda", "bias_sigmoid_mul_cuda",
+             "flash_attention_cuda", "fused_triangle_cuda", "fused_opm_cuda",
+             "flash_attention_bwd_cuda", "bias_dropout_add_cuda")
+    orig = tuple(getattr(ops, n) for n in names)
 
     def ln(x, gamma, beta, eps=1e-5):
         seen["layer_norm"].setdefault(
@@ -226,9 +271,22 @@ def survey_phase(torch, tree, batches):
             where[0])
         return orig[4](a, b_full, mask_a, mask_b, w, bias)
 
-    ops.layer_norm_cuda, ops.bias_sigmoid_mul_cuda = ln, bsm
-    ops.flash_attention_cuda, ops.fused_triangle_cuda = attn, tri
-    ops.fused_opm_cuda = opm
+    def attn_bwd(q, k, v, out, do, lse, bias, mask, scale, need_dmask=False):
+        # do is the contiguous cotangent; the mask never needs a gradient.
+        seen["flash_attention_bwd"].setdefault(
+            (_layout((q, k, v)), None if bias is None else bias.shape[0],
+             mask is not None, str(q.dtype)[6:]), where[0])
+        return orig[5](q, k, v, out, do, lse, bias, mask, scale, need_dmask)
+
+    def bda(x, b, residual, keep, rate):
+        seen["bias_dropout_add"].setdefault(
+            (tuple(x.shape), None if keep is None else tuple(keep.shape),
+             b is not None, None if keep is None else str(keep.dtype)[6:],
+             rate, str(x.dtype)[6:]), where[0])
+        return orig[6](x, b, residual, keep, rate)
+
+    for n, fn in zip(names, (ln, bsm, attn, tri, opm, attn_bwd, bda)):
+        setattr(ops, n, fn)
     try:
         done = set()
         for (name, kw), batch in zip(REQUESTS, batches):
@@ -237,12 +295,17 @@ def survey_phase(torch, tree, batches):
             done.add((kw["n_res"], kw["n_seq"]))
             where[0] = name
             ff.forward(params, batch)
+        where[0] = f"train r{TRAIN_SHAPE['n_res']}_s{TRAIN_SHAPE['n_seq']}"
+        init, step = make_train_step(ff.loss_fn)
+        _, metrics = step(init(params), train_batches(1)[0],
+                          torch.Generator(device="cuda").manual_seed(SEED))
         torch.cuda.synchronize()
     finally:
-        (ops.layer_norm_cuda, ops.bias_sigmoid_mul_cuda,
-         ops.flash_attention_cuda, ops.fused_triangle_cuda,
-         ops.fused_opm_cuda) = orig
+        for n, fn in zip(names, orig):
+            setattr(ops, n, fn)
     emit({"phase": "survey", "cut": {"n_blocks": 1, "n_recycle": 0},
+          "train_step": {"loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"])},
           "distinct_calls": {k: len(v) for k, v in seen.items()}})
     return seen
 
@@ -253,8 +316,10 @@ def kernel_phase(torch, timer, seen):
     the edge cases."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.fused_elementwise import bias_sigmoid_mul_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
+                                                       bias_sigmoid_mul_cuda)
     from repro_torch.kernels.layer_norm import layer_norm_cuda
     from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
@@ -329,7 +394,7 @@ def kernel_phase(torch, timer, seen):
     # the main path lays them out (column slices of the merged projection);
     # the key mask drops ~10% of keys and masks every key of n_masked rows,
     # as padded residues do.
-    def check_attn(case, layout, nb, wm, n_masked, dt, main):
+    def attn_inputs(layout, nb, wm, n_masked, dt):
         qkv = [None] * 3
         for numel, views in layout:
             buf = randn((numel,), dt)
@@ -344,6 +409,12 @@ def kernel_phase(torch, timer, seen):
             keep = torch.rand((n, skv), generator=gen, device="cuda") < 0.9
             keep[:n_masked] = False
             mask = torch.where(keep, 0.0, -1e9).float()
+        return q, k, v, bias, mask
+
+    def check_attn(case, layout, nb, wm, n_masked, dt, main):
+        q, k, v, bias, mask = attn_inputs(layout, nb, wm, n_masked, dt)
+        n, sq, h, d = q.shape
+        skv = k.shape[1]
         scale = 1.0 / d ** 0.5
         out, lse = flash_attention_cuda(q, k, v, bias, mask, scale)
         want, want_lse = ref.attention_ref(q, k, v, bias, mask, scale)
@@ -485,12 +556,122 @@ def kernel_phase(torch, timer, seen):
                want, timing, {"main_path": main,
                               "fully_masked_rows": n_masked})
 
+    # --- K6 flash-attention backward, from the forward kernel's own (out,
+    # lse) on inputs laid out as the main path lays them out; the cotangent
+    # is contiguous, as autograd hands it over.
+    def check_attn_bwd(case, layout, nb, wm, n_masked, dt, main,
+                       need_dmask=False):
+        q, k, v, bias, mask = attn_inputs(layout, nb, wm, n_masked, dt)
+        n, sq, h, d = q.shape
+        skv = k.shape[1]
+        scale = 1.0 / d ** 0.5
+        out, lse = flash_attention_cuda(q, k, v, bias, mask, scale)
+        do = randn((n, sq, h, d), dt)
+        args = (q, k, v, out, do, lse, bias, mask, scale)
+        got = flash_attention_bwd_cuda(*args, need_dmask)
+        want = ref.attention_bwd_ref(q, k, v, do, out, lse, bias, mask, scale)
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv", "dbias", "dmask"), got, want):
+            if g is not None:
+                errs[name] = rel_err(g, w)
+        worst = max(errs, key=lambda e: errs[e][1])
+        timing = None
+        rep = n // nb if nb else None
+        if main:
+            # The least work: five S x S x D products (s, dp, dv, dq, dk);
+            # the kernel recomputes s and dp in each of its sweeps.
+            t_b, by = bound(nbytes(q, k, v, out, do, lse, bias, mask, *got),
+                            10.0 * n * h * sq * skv * d, dt)
+            lib_ms, lib_call = sdpa_backward_ms(q, k, v, bias, mask, do, scale)
+            timing = {
+                "ms": timer(lambda: flash_attention_bwd_cuda(*args, need_dmask)),
+                "plain_ms": timer(lambda: ref.attention_bwd_ref(
+                    q, k, v, do, out, lse, bias, mask, scale)),
+                "library_ms": lib_ms, "library_call": lib_call,
+                "bound_ms": t_b, "bound_by": by}
+        record("flash_attention_bwd", case, dt, (n, sq, skv, h, d),
+               got[["dq", "dk", "dv", "dbias", "dmask"].index(worst)],
+               want[["dq", "dk", "dv", "dbias", "dmask"].index(worst)],
+               timing, {"main_path": main, "rep": rep, "bias": bool(nb),
+                        "mask": wm, "dmask": need_dmask,
+                        "fully_masked_rows": n_masked if wm else 0,
+                        "worst_output": worst,
+                        "max_rel_err_by_output": {
+                            e: errs[e][1] for e in errs}})
+
+    def sdpa_backward_ms(q, k, v, bias, mask, do, scale):
+        """The backward of F.scaled_dot_product_attention on (N, H, S, D)
+        copies, the bias and key mask summed into one (N, H, Sq, Skv)
+        additive mask beforehand: dq, dk, dv and, where there is a bias,
+        the gradient of that summed mask (not reduced over the groups that
+        share a bias). None, with the reason, where PyTorch refuses it."""
+        n, sq, h, d = q.shape
+        skv = k.shape[1]
+        qb, kb, vb = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        am = (mask.to(q.dtype).view(n, 1, 1, skv) if mask is not None else
+              torch.zeros((n, 1, 1, skv), dtype=q.dtype, device="cuda"))
+        inputs = [qb, kb, vb]
+        call = "backward of F.scaled_dot_product_attention: dq, dk, dv"
+        if bias is not None:
+            nb = bias.shape[0]
+            am = (bias.view(nb, 1, h, sq, skv)
+                  + am.view(nb, n // nb, 1, 1, skv)).reshape(n, h, sq, skv)
+            am = am.detach().requires_grad_(True)
+            inputs.append(am)
+            call += " and d(bias + mask) at (N, H, Sq, Skv)"
+        gb = do.transpose(1, 2).contiguous()
+        try:
+            out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=am,
+                                                 scale=scale)
+            fn = lambda: torch.autograd.grad(out, inputs, gb, retain_graph=True)
+            fn()
+        except RuntimeError as e:
+            return None, f"{call}: refused ({str(e).splitlines()[0][:160]})"
+        return timer(fn), call
+
+    # --- K3 bias + dropout + residual add, with the reduced keep mask
+    # (shared along one axis) as the main path hands it over.
+    def check_bda(case, shape, keep_shape, with_bias, keep_dt, rate, dt, main):
+        x = randn(shape, dt)
+        res = randn(shape, dt)
+        b = randn((shape[-1],), "float32") if with_bias else None
+        keep = None
+        if keep_shape is not None:
+            keep = torch.rand(keep_shape, generator=gen, device="cuda") < 1 - rate
+            keep = keep.to(getattr(torch, keep_dt))
+        got = bias_dropout_add_cuda(x, b, res, keep, rate)
+        want = ref.bias_dropout_add_ref(x, b, res, keep, rate)
+        timing = None
+        if main:
+            # The library yardstick: one torch.addcmul(residual, x, keep,
+            # value=1/(1 - rate)), keep cast to x's dtype beforehand (the
+            # main path passes no bias).
+            keep_l = keep.to(x.dtype)
+            t_b, by = bound(nbytes(x, b, res, keep, got), 4.0 * x.numel(),
+                            "float32")
+            timing = {
+                "ms": timer(lambda: bias_dropout_add_cuda(x, b, res, keep, rate)),
+                "plain_ms": timer(lambda: ref.bias_dropout_add_ref(
+                    x, b, res, keep, rate)),
+                "library_ms": timer(lambda: torch.addcmul(
+                    res, x, keep_l, value=1.0 / (1.0 - rate))),
+                "library_call": "torch.addcmul(residual, x, keep, "
+                                "value=1/(1-rate))",
+                "bound_ms": t_b, "bound_by": by}
+        record("bias_dropout_add", case, dt, shape, got, want, timing,
+               {"main_path": main, "keep_shape": keep_shape,
+                "keep_dtype": keep_dt, "bias": with_bias, "rate": rate})
+
     # Every main-path signature in its own dtype (timed), then in the other
     # dtype where the main path has no such call itself.
     checks = {"layer_norm": check_ln, "bias_sigmoid_mul": check_bsm,
               "flash_attention_fwd": lambda case, *a: check_attn(
                   case, *a[:-2], 2, *a[-2:]),
-              "triangle_mult": check_tri, "outer_product_mean": check_opm}
+              "triangle_mult": check_tri, "outer_product_mean": check_opm,
+              "flash_attention_bwd": lambda case, *a: check_attn_bwd(
+                  case, *a[:-2], 2, *a[-2:]),
+              "bias_dropout_add": check_bda}
     for kernel, calls in seen.items():
         for sig, req in calls.items():
             checks[kernel](f"{req} main path", *sig, True)
@@ -533,6 +714,27 @@ def kernel_phase(torch, timer, seen):
                 ("mini_widths", 2, 40, 30, 26, 16, 32, 1),
                 ("c16_d128", 1, 8, 20, 20, 16, 128, 0)]:
             check_opm(case, (bsz, ns, ni, c), nj, d, dt, False, nm)
+        # (case, N, Sq, Skv, H, D, B, mask, fully masked rows, dmask): the
+        # K5 grid, plus rep 1 (dbias from the dq sweep) and the mask's
+        # gradient.
+        for case, n, sq, skv, h, d, nb, wm, nm, dmask in [
+                ("ragged_skv200", 6, 64, 200, 4, 32, 2, True, 0, False),
+                ("fully_masked_rows", 8, 100, 100, 4, 32, 2, True, 3, True),
+                ("no_bias_no_mask", 4, 130, 130, 2, 32, 0, False, 0, False),
+                ("head_dim16", 4, 40, 40, 2, 16, 4, False, 0, False),
+                ("rep1_dbias_fused", 3, 70, 90, 2, 32, 3, True, 1, True)]:
+            check_attn_bwd(case, qkv_layout(n, sq, skv, h, d), nb, wm, nm,
+                           dt, False, dmask)
+        # (case, shape, keep shape, bias, keep dtype, rate)
+        for case, shape, kshape, wb, kdt, rate in [
+                ("bias_no_dropout", (2, 9, 40, 64), None, True, None, 0.0),
+                ("bias_shared_axis1_uint8", (1, 7, 33, 128), (1, 1, 33, 128),
+                 True, "uint8", 0.25),
+                ("shared_axis2_bool", (1, 33, 7, 256), (1, 33, 1, 256), False,
+                 "bool", 0.15),
+                ("full_mask_3d", (5, 11, 16), (5, 11, 16), True, "float32",
+                 0.5)]:
+            check_bda(case, shape, kshape, wb, kdt, rate, dt, False)
     return results
 
 
@@ -551,7 +753,27 @@ def expected_launches(cfg, passes: int) -> dict[str, int]:
             "bias_sigmoid_mul": passes * 4 * nb,
             "flash_attention_fwd": passes * 4 * nb,
             "triangle_mult": passes * 2 * nb,
-            "outer_product_mean": passes * nb}
+            "outer_product_mean": passes * nb,
+            "flash_attention_bwd": 0, "bias_dropout_add": 0}
+
+
+def expected_train_launches(cfg) -> dict[str, int]:
+    """Launches per training step from the config: n_recycle no-grad passes
+    and the grad pass, each a forward (with the 6 dropout residual adds of a
+    block on K3); then the backward recomputes every Evoformer block (its
+    kernels run once more, the structure module's do not) and runs one
+    attention backward per attention of the grad pass."""
+    passes = cfg.n_recycle + 1
+    nb = cfg.evoformer.n_blocks
+    fwd = expected_launches(cfg, passes)
+    block = expected_launches(
+        dataclasses.replace(cfg, structure=dataclasses.replace(
+            cfg.structure, n_iterations=0)), 1)
+    block["layer_norm"] -= 4          # recycling and structure LNs
+    out = {k: fwd[k] + block[k] for k in fwd}
+    out["bias_dropout_add"] = (passes + 1) * 6 * nb
+    out["flash_attention_bwd"] = 4 * nb
+    return out
 
 
 def init_phase(torch):
@@ -623,10 +845,136 @@ def serve_phase(torch, tree, batches):
         if counts != per_request:
             fail(f"serve {name}: launches {counts} != expected {per_request}")
     main_launches = {k: _build.LAUNCHES[k] for k in per_request}
-    if any(v == 0 for v in main_launches.values()):
+    if any(main_launches[k] == 0 for k in per_request if per_request[k]):
         fail(f"a kernel of the main path never launched: {main_launches}")
     del params
     return main_launches, latencies
+
+
+def train_phase(torch):
+    """The training entry point at the paper's initial training setting:
+    ``make_train_step(FastFold(FULL).loss_fn)`` on the port's own init, bf16,
+    remat per block, dropout from a seeded generator on the card. One
+    uncounted warm-up step, then two counted steps."""
+    from repro_torch.configs import FULL
+    from repro_torch.exec import FastFold
+    from repro_torch.kernels import _build
+    from repro_torch.train import make_train_step
+
+    ff = FastFold(FULL)
+    init, step = make_train_step(ff.loss_fn)
+    state = init(ff.init(seed=SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batches = train_batches(3)
+    per_step = expected_train_launches(FULL)
+
+    def run(batch):
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        vals = {k: float(v) for k, v in metrics.items()}    # synchronises
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, vals
+
+    def checked(i, secs, vals, counts=None):
+        ok = (all(map(lambda x: x == x and abs(x) != float("inf"),
+                      (vals["loss"], vals["grad_norm"])))
+              and vals["nonfinite_skips"] == 0.0)
+        row = {"phase": "train", "step": i, "counted": counts is not None,
+               "step_s": secs, **vals, "ok": ok}
+        if counts is not None:
+            row.update({"launches": counts, "expected_launches": per_step})
+        emit(row)
+        if not ok:
+            fail(f"train step {i}: loss or grad norm not finite, or skipped")
+        if counts is not None and counts != per_step:
+            fail(f"train step {i}: launches {counts} != expected {per_step}")
+
+    secs, vals = run(batches[0])                  # warm-up, not counted
+    checked(0, secs, vals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()                      # the main path starts here
+    before = dict.fromkeys(per_step, 0)
+    times = []
+    for i, batch in enumerate(batches[1:], start=1):
+        secs, vals = run(batch)
+        counts = {k: _build.LAUNCHES[k] - before[k] for k in per_step}
+        before = {k: _build.LAUNCHES[k] for k in per_step}
+        times.append(secs)
+        checked(i, secs, vals, counts)
+    launches = {k: _build.LAUNCHES[k] for k in per_step}
+    peak = torch.cuda.max_memory_allocated()
+    summary = {"phase": "train_summary", "n_res": TRAIN_SHAPE["n_res"],
+               "n_seq": TRAIN_SHAPE["n_seq"], "batch": 1, "dtype": "bfloat16",
+               "n_blocks": FULL.evoformer.n_blocks,
+               "n_recycle": FULL.n_recycle, "remat": True,
+               "dropout": [FULL.evoformer.dropout_msa,
+                           FULL.evoformer.dropout_pair],
+               "warm_step_s": statistics.mean(times), "step_s": times,
+               "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
+               "launches_per_step": per_step}
+    emit(summary)
+    del state
+    return launches, summary
+
+
+def train_parity_phase(torch, tree):
+    """The kernel path against the plain path through the backward: the
+    FULL-width model cut to 2 blocks and no recycling, fp32, no dropout,
+    randomised weights, r = 128, s = 64; the gradient of every parameter
+    on the card and on the CPU."""
+    from repro_torch.configs import FULL
+    from repro_torch.exec import FastFold
+    from repro_torch.layers.params import tree_leaves, tree_map
+    from repro_torch.weights import params_from_numpy
+
+    n_blocks = 2
+    cfg = _cut(FULL, n_blocks)
+    cut = dict(tree, evoformer=_slice_tree(tree["evoformer"], n_blocks))
+    batch = train_batches(1, n_res=128, n_seq=64)[0]
+    grads, losses, secs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        ff = FastFold(cfg, device=dev, dtype=torch.float32)
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          params_from_numpy(cut, device=dev))
+        t0 = time.perf_counter()
+        loss, _ = ff.train_loss(params, batch)
+        leaves = tree_leaves(params)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        losses[dev] = float(loss.detach())
+        secs[dev] = time.perf_counter() - t0
+    worst = (0.0, 0.0, -1)
+    for i, (g, w) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        err, rel = rel_err(g, w)
+        if rel >= worst[1]:
+            worst = (err, rel, i)
+    names = _leaf_names(params)
+    row = {"phase": "train_parity_fp32",
+           "cut": {"n_blocks": n_blocks, "n_recycle": 0}, "width": "FULL",
+           "n_res": 128, "n_seq": 64, "dropout": False, "tol": GRAD_TOL,
+           "leaves": len(grads["cpu"]), "loss": losses,
+           "loss_rel_diff": abs(losses["cuda"] - losses["cpu"])
+           / abs(losses["cpu"]),
+           "worst_leaf": names[worst[2]], "worst_max_abs_diff": worst[0],
+           "worst_max_rel_diff": worst[1], "seconds": secs,
+           "ok": worst[1] <= GRAD_TOL and all(
+               torch.isfinite(g).all() for g in grads["cuda"])}
+    emit(row)
+    if not row["ok"]:
+        fail(f"fp32 gradients of the kernel path and the plain path disagree: "
+             f"{names[worst[2]]} {worst[1]:.3g} > {GRAD_TOL}")
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths of the port's parameter tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix[:-1]}[{i}].")]
+    return [prefix[:-1]]
 
 
 def _leaves(tree):
@@ -757,17 +1105,27 @@ def main() -> int:
             "tol": TOL[k]} for k in TOL}})
 
     del timer
-    launches, latencies = serve_phase(torch, tree, batches)
+    serve_launches, latencies = serve_phase(torch, tree, batches)
     parity_phase(torch, tree, batches)
+    train_launches, _ = train_phase(torch)
+    train_parity_phase(torch, tree)
 
-    # One line for every ported kernel, at its heaviest main-path shape.
+    # One line for every ported kernel, at its heaviest main-path shape;
+    # its launches are those of its own path: serving for the inference
+    # kernels, the training step for the two that only training runs.
     kernels = []
     for k, (src, replaces) in SOURCES.items():
         timed = [r for r in checks if r["kernel"] == k and "ms" in r]
         top = max(timed, key=lambda r: r["bound_ms"])
+        path = "train" if k in TRAIN_KERNELS else "serve"
+        launches = train_launches if k in TRAIN_KERNELS else serve_launches
+        if launches[k] == 0:
+            fail(f"{k} never launched on its path ({path})")
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k],
+            "launches": launches[k], "launches_path": path,
+            "launches_serve": serve_launches[k],
+            "launches_train": train_launches[k],
             "max_abs_err": max(r["max_abs_err"] for r in checks
                                if r["kernel"] == k),
             "tol": TOL[k],

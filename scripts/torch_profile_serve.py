@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where a FULL-width fold spends its time on the GPU (PyTorch port).
+"""Where a FULL-width fold, or a FULL-width training step, spends its time
+on the GPU (PyTorch port).
 
     PYTHONPATH=src python scripts/torch_profile_serve.py [--n-res 256 384] [--n-seq 128]
+    PYTHONPATH=src python scripts/torch_profile_serve.py --train [--n-res 256]
 
 For each residue count, serves one request through ``FastFold(FULL)`` (48
 blocks, n_recycle = 3, every weight randomised from a seed): once after a
@@ -10,6 +12,14 @@ warm-up pass, unprofiled, for its latency, then once under
 time of all kernels and its share of the profiled wall time (the device's
 busy share), the device time by group, and the PyTorch operators and the
 kernels that take the most device time.
+
+With ``--train`` it does the same for one step of
+``make_train_step(FastFold(FULL).loss_fn)`` (the port's own init, bf16,
+remat per block, dropout from a seeded generator) after a warm-up step, and
+first times the step's parts apart, each ending in a synchronise: the
+training loss's forward with all its passes, the same with no recycling
+(the grad pass alone), its backward (the blocks' recompute included), and
+the whole step.
 
 A kernel is grouped by the operator that launched it, not by its name: the
 profiler's raw events give each kernel the correlation id of a CPU event (the
@@ -39,12 +49,17 @@ from repro_torch.configs import FULL
 from repro_torch.data import protein_batches
 from repro_torch.exec import FastFold
 from repro_torch.kernels import _build
+from repro_torch.layers.params import tree_leaves, tree_map
+from repro_torch.train import make_train_step
 from repro_torch.weights import (params_from_numpy, params_to_numpy,
                                  randomize_tree)
 
 PORT_KERNELS = ("layer_norm_kernel", "bias_sigmoid_mul_kernel",
                 "flash_fwd_kernel", "triangle_mult_mma_kernel",
-                "outer_product_mean_mma_kernel")
+                "outer_product_mean_mma_kernel", "bias_dropout_add_kernel",
+                # the flash-attention backward's passes
+                "delta_kernel", "dq_kernel", "dkv_kernel", "dbias_kernel",
+                "dmask_reduce_kernel")
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone"}
@@ -110,39 +125,89 @@ def device_time(prof):
     return sum(v[0] for v in by_kernel.values()), groups, by_op, by_kernel
 
 
+def _timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serve_runner(ff, params, batch):
+    """(the timed call, what the head line reports besides its time)."""
+    ff.forward(params, batch, n_recycle=0)      # warm-up: cuBLAS, pools
+    return (lambda: ff.serve(params, [batch])), {}
+
+
+def train_runner(ff, params, batch, seed):
+    """One training step after a warm-up step, and the parts of a step
+    timed apart."""
+    init, step = make_train_step(ff.loss_fn)
+    state = [init(params)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def run_step():
+        state[0], metrics = step(state[0], batch, gen)
+        float(metrics["loss"])
+
+    run_step()                                  # warm-up
+    grad_params = tree_map(lambda t: t.detach().requires_grad_(True),
+                           state[0].params)
+    parts = {}
+    loss = [None]
+
+    def fwd(n_recycle=None):
+        loss[0], _ = ff.train_loss(grad_params, batch, gen,
+                                   n_recycle=n_recycle)
+
+    parts["loss_forward_s"] = _timed(fwd)
+    parts["backward_s"] = _timed(lambda: torch.autograd.grad(
+        loss[0], tree_leaves(grad_params)))
+    parts["grad_pass_forward_s"] = _timed(lambda: fwd(0))
+    loss[0] = None
+    parts["no_grad_passes_s"] = (parts["loss_forward_s"]
+                                 - parts["grad_pass_forward_s"])
+    parts["step_s"] = _timed(run_step)
+    parts["optimizer_and_rest_s"] = (parts["step_s"] - parts["loss_forward_s"]
+                                     - parts["backward_s"])
+    return run_step, {"train": True, "remat": True, "dtype": "bfloat16",
+                      **parts}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-res", type=int, nargs="+", default=[256])
     ap.add_argument("--n-seq", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one training step instead of a request")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_serve: needs a CUDA device")
     _build.build_all()
     ff = FastFold(FULL)
-    tree = randomize_tree(params_to_numpy(ff.init(seed=args.seed)),
-                          args.seed + 1)
-    params = params_from_numpy(tree, device="cuda")
+    if args.train:
+        params = ff.init(seed=args.seed)
+    else:
+        tree = randomize_tree(params_to_numpy(ff.init(seed=args.seed)),
+                              args.seed + 1)
+        params = params_from_numpy(tree, device="cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     for n_res in args.n_res:
         batch = next(protein_batches(batch=1, n_seq=args.n_seq, n_res=n_res,
                                      seed=args.seed + 2)).as_dict()
-        ff.forward(params, batch, n_recycle=0)      # warm-up: cuBLAS, pools
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ff.serve(params, [batch])
-        torch.cuda.synchronize()
-        latency = time.perf_counter() - t0
+        if args.train:
+            run, extra = train_runner(ff, params, batch, args.seed)
+        else:
+            run, extra = serve_runner(ff, params, batch)
+        latency = _timed(run)
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ff.serve(params, [batch])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            wall = _timed(run)
         total_ms, groups, by_op, by_kernel = device_time(prof)
         if total_ms == 0:
             raise SystemExit("torch_profile_serve: the profiler recorded no "
@@ -150,7 +215,7 @@ def main() -> None:
         head = {"n_res": n_res, "n_seq": args.n_seq}
         print(json.dumps({
             "device": smi, **head, "n_blocks": FULL.evoformer.n_blocks,
-            "n_recycle": FULL.n_recycle, "latency_s": latency,
+            "n_recycle": FULL.n_recycle, "latency_s": latency, **extra,
             "profiled_wall_s": wall, "device_kernel_ms": total_ms,
             "device_busy_share": total_ms / (wall * 1e3)}), flush=True)
         for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):

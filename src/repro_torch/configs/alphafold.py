@@ -1,7 +1,7 @@
 """AlphaFold model configs (paper Table I) and their dataclasses.
 
 Own copies of the reference's ``EvoformerConfig`` / ``StructureConfig`` /
-``AlphaFoldConfig`` with the fields inference reads; ``compute_dtype`` is a
+``AlphaFoldConfig`` with the fields inference and training read; ``compute_dtype`` is a
 torch dtype. The chunking knobs of the reference (AutoChunk) are not part of
 this port yet: they change memory, not numbers.
 """
@@ -22,6 +22,8 @@ class EvoformerConfig:
     opm_dim: int = 32
     tri_mult_dim: int = 128
     transition_factor: int = 4
+    dropout_msa: float = 0.15
+    dropout_pair: float = 0.25
     n_blocks: int = 48
 
 

@@ -1,9 +1,10 @@
-"""End-to-end AlphaFold-2 folding inference: embedders, recycling, the
-Evoformer trunk, the structure module and the heads.
+"""End-to-end AlphaFold-2: embedders, recycling, the Evoformer trunk, the
+structure module and the heads, for folding inference and for the training
+loss.
 
 Left out of this port for now: AutoChunk (the reference's
-``resolve_evoformer_config``), whose knobs change memory and not numbers,
-the training loss, and dropout. The recycling loop is a Python loop.
+``resolve_evoformer_config``), whose knobs change memory and not numbers.
+The recycling loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.alphafold import AlphaFoldConfig
-from repro_torch.core.evoformer import evoformer_stack, init_evoformer_stack
+from repro_torch.core.evoformer import (DROPOUT_SITES, evoformer_stack,
+                                        init_evoformer_stack)
+from repro_torch.core.losses import alphafold_loss
 from repro_torch.core.structure import init_structure_module, structure_module
 from repro_torch.data.synthetic import N_AA, N_MSA_TOK
 from repro_torch.layers.norms import init_layer_norm, layer_norm
@@ -87,8 +90,11 @@ def embed_recycle(params, msa, pair, prev, cfg: AlphaFoldConfig):
     return msa, pair
 
 
-def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig):
-    """One recycling iteration: embed -> Evoformer -> structure + heads."""
+def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig, *,
+                        keeps: list[dict] | None = None, remat: bool = False):
+    """One recycling iteration: embed -> Evoformer -> structure + heads.
+    ``keeps``: the Evoformer's dropout masks, or None; ``remat``: per-block
+    activation checkpointing."""
     dt = cfg.compute_dtype
     msa, pair = embed_inputs(params, batch, cfg)
     msa, pair = embed_recycle(params, msa, pair, prev, cfg)
@@ -99,7 +105,7 @@ def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig):
     pair_mask = seq_mask[:, :, None] * seq_mask[:, None, :]
     msa, pair = evoformer_stack(params["evoformer"], msa, pair,
                                 batch["msa_mask"], seq_mask, pair_mask,
-                                cfg=cfg.evoformer)
+                                cfg=cfg.evoformer, keeps=keeps, remat=remat)
 
     single = dense(params["single_proj"], msa[:, 0].float())
     coords, frames, traj = structure_module(params["structure"], single,
@@ -117,22 +123,87 @@ def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig):
 
 
 def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
-                      n_recycle: int | None = None):
+                      n_recycle: int | None = None, train: bool = False,
+                      keeps: list[dict] | None = None, remat: bool = False):
     """Full forward with recycling (``n_recycle`` extra passes, default the
-    config's), under ``torch.inference_mode``. ``batch`` is a dict of tensors
-    on the parameters' device."""
+    config's). ``batch`` is a dict of tensors on the parameters' device.
+
+    Inference (``train=False``) runs under ``torch.inference_mode`` with no
+    dropout. Training runs the pre-final passes under ``torch.no_grad`` (the
+    reference's stop_gradient over its recycling loop) and builds the graph
+    in the last pass only; every pass applies the same dropout masks
+    ``keeps`` (the reference hands one rng to all of them), and ``remat``
+    checkpoints each Evoformer block of the last pass."""
     if n_recycle is None:
         n_recycle = cfg.n_recycle
     b, s, r = batch["msa"].shape
     dev = batch["msa"].device
-    with torch.inference_mode():
-        prev = (
+
+    def zeros_prev():
+        return (
             torch.zeros((b, r, cfg.d_msa), dtype=torch.float32, device=dev),
-            torch.zeros((b, r, r, cfg.d_pair), dtype=torch.float32, device=dev),
+            torch.zeros((b, r, r, cfg.d_pair), dtype=torch.float32,
+                        device=dev),
             torch.zeros((b, r, 3), dtype=torch.float32, device=dev),
         )
+
+    def recycle(prev):
         for _ in range(n_recycle):
-            out = alphafold_iteration(params, batch, prev, cfg)
+            out = alphafold_iteration(params, batch, prev, cfg, keeps=keeps)
             prev = (out["msa"][:, 0].float(), out["pair"].float(),
                     out["coords"])
-        return alphafold_iteration(params, batch, prev, cfg)
+        return prev
+
+    if not train:
+        keeps = None
+        with torch.inference_mode():
+            return alphafold_iteration(params, batch, recycle(zeros_prev()),
+                                       cfg)
+    with torch.no_grad():
+        prev = recycle(zeros_prev())
+    return alphafold_iteration(params, batch, prev, cfg, keeps=keeps,
+                               remat=remat)
+
+
+def draw_dropout_keeps(cfg: AlphaFoldConfig, batch_shape, generator,
+                       device=None) -> list[dict]:
+    """Every Evoformer block's dropout masks for one step, drawn once from
+    the explicit ``generator`` (on ``device``): per block and site of
+    ``DROPOUT_SITES`` a Bernoulli(1 - rate) 0/1 fp32 mask at the reduced
+    shape, size 1 along the axis that shares one draw. ``batch_shape`` is
+    the MSA's (B, s, r); ``device`` defaults to the generator's. They are
+    drawn here, outside any checkpointed block, so a recompute sees the
+    same masks."""
+    b, s, r = batch_shape
+    evo = cfg.evoformer
+    widths = {"msa_row": (s, r, evo.d_msa, evo.dropout_msa)}
+    for site in DROPOUT_SITES:
+        if site != "msa_row":
+            widths[site] = (r, r, evo.d_pair, evo.dropout_pair)
+    keeps = []
+    for _ in range(evo.n_blocks):
+        block = {}
+        for site, axis in DROPOUT_SITES.items():
+            d1, d2, c, rate = widths[site]
+            shape = [b, d1, d2, c]
+            shape[axis] = 1
+            u = torch.rand(shape, generator=generator,
+                           device=generator.device)
+            block[site] = (u < 1.0 - rate).float().to(device)
+        keeps.append(block)
+    return keeps
+
+
+def alphafold_train_loss(params, batch, cfg: AlphaFoldConfig, *,
+                         generator: torch.Generator | None = None,
+                         keeps: list[dict] | None = None,
+                         n_recycle: int | None = None, remat: bool = True):
+    """The training loss and its metrics, ``(loss, metrics)``. Dropout: the
+    given ``keeps``, else masks drawn from ``generator``, else none (as the
+    reference's rng=None). ``remat`` checkpoints each Evoformer block."""
+    if keeps is None and generator is not None:
+        keeps = draw_dropout_keeps(cfg, batch["msa"].shape, generator,
+                                   batch["msa"].device)
+    out = alphafold_forward(params, batch, cfg, n_recycle=n_recycle,
+                            train=True, keeps=keeps, remat=remat)
+    return alphafold_loss(out, batch)

@@ -1,22 +1,30 @@
-"""Evoformer (AlphaFold 2 trunk), single device, inference.
+"""Evoformer (AlphaFold 2 trunk), single device, inference and training.
 
 The port of the reference's ``evoformer_block`` / ``evoformer_stack`` with
 single-device semantics: collectives are the identity, ``transpose_pair`` is
 an axis swap, and the async overlap window is the identity. The four
 attention sites (MSA row with pair bias, MSA column, triangle start and end
 with pair bias) go through ``ops.fused_attention`` — the flash-attention
-kernel on the card. Every LayerNorm goes through the LayerNorm kernel and
+kernels on the card. Every LayerNorm goes through the LayerNorm kernel and
 every attention output gate through the gating kernel. Both triangular
 multiplicative updates and the outer-product-mean take the reference's
 default (fused) branch: ``ops.fused_triangle_mult`` and
 ``ops.fused_outer_product_mean``, the fused triangle and OPM kernels on the
 card, so neither the (B, r, r, c) triangle product nor the (B, r, r, c, c)
-outer product is ever a whole tensor. There is no remat and no dropout:
-this is the inference forward.
+outer product is ever a whole tensor.
+
+Training: the six residual adds that the reference drops out go through
+``ops.bias_dropout_add`` with their keep masks (drawn by the caller, see
+``core.alphafold.draw_dropout_keeps``, at the reduced shape of the
+reference's shared axis), and ``evoformer_stack(remat=True)`` recomputes each
+block in the backward (``torch.utils.checkpoint``, the reference's
+``nothing_saveable`` policy). Masks are never drawn inside a checkpointed
+block, so the recompute sees the same ones.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.alphafold import EvoformerConfig
 from repro_torch.kernels import ops
@@ -97,9 +105,17 @@ def init_evoformer_stack(generator: torch.Generator,
 # Helpers
 # ---------------------------------------------------------------------------
 
-def _residual_add(upd: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-    """Inference residual add (no dropout): fp32 add, residual's dtype."""
-    return ops.bias_dropout_add(upd, None, residual)
+# The six residual adds that apply dropout, in the reference's order of its
+# per-block rng split, with the axis of the update that shares one draw.
+DROPOUT_SITES = {"msa_row": 2, "opm": 1, "tri_mult_out": 1, "tri_mult_in": 1,
+                 "tri_attn_start": 1, "tri_attn_end": 2}
+
+
+def _residual_add(upd: torch.Tensor, residual: torch.Tensor, rate: float = 0.0,
+                  keep: torch.Tensor | None = None) -> torch.Tensor:
+    """residual + dropout(upd): fp32 add, residual's dtype. ``keep`` is the
+    reduced 0/1 mask shared along one axis, or None (no dropout)."""
+    return ops.bias_dropout_add(upd, None, residual, rate, keep)
 
 
 def transpose_pair(x: torch.Tensor) -> torch.Tensor:
@@ -207,28 +223,33 @@ def triangle_attention(p, pair, seq_mask, cfg: EvoformerConfig):
 
 def evoformer_block(params: Params, msa: torch.Tensor, pair: torch.Tensor,
                     msa_mask: torch.Tensor, seq_mask: torch.Tensor,
-                    pair_mask: torch.Tensor, *, cfg: EvoformerConfig):
+                    pair_mask: torch.Tensor, *, cfg: EvoformerConfig,
+                    keeps: dict | None = None):
     """One Evoformer block: msa (B, s, r, Hm), pair (B, r, r, Hz), masks
-    msa_mask (B, s, r), seq_mask (B, r), pair_mask (B, r, r)."""
+    msa_mask (B, s, r), seq_mask (B, r), pair_mask (B, r, r). ``keeps``: the
+    block's dropout masks by site (``DROPOUT_SITES``), or None for none."""
+    kp = keeps or {}
+    rm, rz = cfg.dropout_msa, cfg.dropout_pair
     upd = msa_row_attention(params["msa_row"], msa, pair, seq_mask, cfg)
-    msa = _residual_add(upd, msa)
+    msa = _residual_add(upd, msa, rm, kp.get("msa_row"))
     upd = msa_col_attention(params["msa_col"], msa, msa_mask, cfg)
     msa = _residual_add(upd, msa)
     msa = _residual_add(msa_transition(params["msa_trans"], msa), msa)
 
     pair = _residual_add(outer_product_mean(params["opm"], msa, msa_mask, cfg),
-                         pair)
+                         pair, rz, kp.get("opm"))
     upd = triangle_mult_outgoing(params["tri_mult_out"], pair, pair_mask)
-    pair = _residual_add(upd, pair)
+    pair = _residual_add(upd, pair, rz, kp.get("tri_mult_out"))
     upd = triangle_mult_incoming(params["tri_mult_in"], transpose_pair(pair),
                                  transpose_pair(pair_mask))
-    pair = _residual_add(upd, pair)
+    pair = _residual_add(upd, pair, rz, kp.get("tri_mult_in"))
     upd = triangle_attention(params["tri_attn_start"], pair, seq_mask, cfg)
-    pair = _residual_add(upd, pair)
+    pair = _residual_add(upd, pair, rz, kp.get("tri_attn_start"))
     # Ending-node attention == starting-node attention on the transpose.
     upd_t = triangle_attention(params["tri_attn_end"], transpose_pair(pair),
                                seq_mask, cfg)
-    pair = _residual_add(transpose_pair(upd_t), pair)
+    pair = _residual_add(transpose_pair(upd_t), pair, rz,
+                         kp.get("tri_attn_end"))
     pair = _residual_add(
         transition(params["pair_trans"]["mlp"],
                    layer_norm(params["pair_trans"]["ln"], pair)), pair)
@@ -238,9 +259,22 @@ def evoformer_block(params: Params, msa: torch.Tensor, pair: torch.Tensor,
 def evoformer_stack(params: list[Params], msa: torch.Tensor,
                     pair: torch.Tensor, msa_mask: torch.Tensor,
                     seq_mask: torch.Tensor, pair_mask: torch.Tensor, *,
-                    cfg: EvoformerConfig):
-    """The n_blocks Evoformer blocks in a Python loop."""
-    for p in params:
-        msa, pair = evoformer_block(p, msa, pair, msa_mask, seq_mask,
-                                    pair_mask, cfg=cfg)
+                    cfg: EvoformerConfig, keeps: list[dict] | None = None,
+                    remat: bool = False):
+    """The n_blocks Evoformer blocks in a Python loop. ``keeps``: one dict
+    of dropout masks per block, or None. ``remat``: when a graph is being
+    built, each block keeps only its inputs and runs again in the backward
+    (activation checkpointing per block, the reference's ``remat=True``
+    with ``nothing_saveable``); the recompute runs the whole block, so it
+    launches every kernel of the block a second time."""
+    for i, p in enumerate(params):
+        kb = keeps[i] if keeps is not None else None
+        if remat and torch.is_grad_enabled():
+            with set_checkpoint_early_stop(False):
+                msa, pair = checkpoint(
+                    evoformer_block, p, msa, pair, msa_mask, seq_mask,
+                    pair_mask, cfg=cfg, keeps=kb, use_reentrant=False)
+        else:
+            msa, pair = evoformer_block(p, msa, pair, msa_mask, seq_mask,
+                                        pair_mask, cfg=cfg, keeps=kb)
     return msa, pair

@@ -62,6 +62,19 @@ def compose_frames(rot1, trans1, rot2, trans2):
     return rot, trans
 
 
+def frames_from_3_points(x1, x2, x3):
+    """Gram-Schmidt frames from 3 points (AlphaFold Alg. 21): origin x2,
+    x3 - x2 defines e1. Builds ground-truth frames from CA traces."""
+    v1 = x3 - x2
+    v2 = x1 - x2
+    e1 = v1 / (torch.linalg.norm(v1, dim=-1, keepdim=True) + 1e-8)
+    u2 = v2 - e1 * torch.sum(e1 * v2, dim=-1, keepdim=True)
+    e2 = u2 / (torch.linalg.norm(u2, dim=-1, keepdim=True) + 1e-8)
+    e3 = torch.linalg.cross(e1, e2, dim=-1)
+    rot = torch.stack([e1, e2, e3], dim=-1)  # columns are the basis
+    return rot, x2
+
+
 # --- IPA --------------------------------------------------------------------
 
 def init_ipa(generator: torch.Generator, cfg: StructureConfig) -> Params:

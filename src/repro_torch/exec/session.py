@@ -1,13 +1,17 @@
-"""FastFold facade for folding inference: bind a config, a device and a
-compute dtype once.
+"""FastFold facade for folding inference and training: bind a config, a
+device and a compute dtype once.
 
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
+    from repro_torch.train import make_train_step
 
     ff = FastFold(FULL)                         # on the card
     params = ff.init(seed=0)
     out = ff.forward(params, batch)             # batch: dict of arrays
     outs = ff.serve(params, [batch_a, batch_b])
+    loss, metrics = ff.train_loss(params, batch, generator=gen)
+    init_state, step = make_train_step(ff.loss_fn)
+    state, metrics = step(init_state(params), batch, gen)
 
 ``device=None`` means the card and raises where there is none;
 ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -20,10 +24,13 @@ from typing import Iterable, Mapping
 import torch
 
 from repro_torch.configs.alphafold import AlphaFoldConfig
-from repro_torch.core.alphafold import alphafold_forward, init_alphafold
+from repro_torch.core.alphafold import (alphafold_forward,
+                                        alphafold_train_loss, init_alphafold)
+from repro_torch.layers.params import tree_map
 
-# The features the forward reads.
+# The features the forward reads, and those the training loss adds.
 FEATURES = ("msa", "msa_mask", "residue_index", "aatype", "seq_mask")
+TRAIN_FEATURES = ("pseudo_beta", "bert_mask", "true_msa")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,17 +46,9 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def tree_to(tree, device):
-    """Move a nested dict/list of tensors to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 class FastFold:
-    """AlphaFold folding inference bound to one device and compute dtype."""
+    """AlphaFold inference and training bound to one device and compute
+    dtype."""
 
     def __init__(self, config: AlphaFoldConfig, *, device=None,
                  dtype: torch.dtype | None = None):
@@ -61,12 +60,15 @@ class FastFold:
     def init(self, seed: int = 0):
         """Fresh parameters from a seeded CPU generator, on the device."""
         gen = torch.Generator().manual_seed(seed)
-        return tree_to(init_alphafold(gen, self.config), self.device)
+        return tree_map(lambda t: t.to(self.device),
+                        init_alphafold(gen, self.config))
 
     def batch_to_device(self, batch: Mapping) -> dict[str, torch.Tensor]:
-        """The forward's features as tensors on the bound device."""
+        """The forward's features, and the training features the batch
+        holds, as tensors on the bound device."""
         return {k: torch.as_tensor(batch[k]).to(self.device)
-                for k in FEATURES}
+                for k in FEATURES + TRAIN_FEATURES
+                if k in FEATURES or k in batch}
 
     def forward(self, params, batch: Mapping, *, n_recycle: int | None = None):
         """Full folding forward (recycling included)."""
@@ -76,3 +78,22 @@ class FastFold:
     def serve(self, params, batches: Iterable[Mapping]):
         """Folding-inference service entry: one forward per request."""
         return [self.forward(params, b) for b in batches]
+
+    def train_loss(self, params, batch: Mapping, generator=None, *,
+                   n_recycle: int | None = None):
+        """``(loss, metrics)`` of one training forward, recycling included,
+        with activation checkpointing per Evoformer block. Dropout masks are
+        drawn from ``generator``; None means no dropout."""
+        return alphafold_train_loss(params, self.batch_to_device(batch),
+                                    self.config, generator=generator,
+                                    n_recycle=n_recycle)
+
+    @property
+    def loss_fn(self):
+        """``(params, batch, rng) -> (loss, metrics)`` for
+        ``train.make_train_step``; ``rng`` is a ``torch.Generator`` for the
+        dropout masks, or None for no dropout."""
+        def fn(params, batch, rng=None):
+            return self.train_loss(params, batch, rng)
+
+        return fn

@@ -65,6 +65,23 @@ SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,              # w, bias, out
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,   # B, S, I, J, C, D
         _c_int, _c_void_p]),                          # dtype, stream
+    "flash_attention_bwd": ("flash_attention_bwd", [
+        _c_void_p, _c_void_p, _c_void_p,              # q, k, v
+        _c_void_p, _c_void_p, _c_void_p,              # out, dout, lse
+        _c_void_p, _c_void_p,                         # bias, mask (or NULL)
+        _c_void_p, _c_void_p, _c_void_p,              # dq, dk, dv
+        _c_void_p, _c_void_p,                         # dbias, dmask (or NULL)
+        _c_void_p, _c_void_p,                         # delta, dmask_h scratch
+        _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,            # q/k/v/out/dout strides
+        _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,            # (n, s)
+        _c_int, _c_int, _c_int, _c_int, _c_int,       # N, Sq, Skv, H, D
+        _c_int, _c_float, _c_int, _c_void_p]),        # rep, scale, dtype, stream
+    "bias_dropout_add": ("bias_dropout_add_fwd", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, b, residual, keep
+        _c_void_p,                                    # out
+        _c_ll, _c_int, _c_int, _c_int,                # d0, d1, d2, C
+        _c_ll, _c_ll, _c_ll, _c_ll,                   # keep strides (0,1,2,C)
+        _c_float, _c_int, _c_int, _c_void_p]),        # 1-rate, dtype, keep dtype, stream
 }
 
 # The kernels' dtype argument.

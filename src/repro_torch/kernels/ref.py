@@ -62,6 +62,65 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                      bias: torch.Tensor | None = None,
+                      mask: torch.Tensor | None = None, scale: float = 1.0):
+    """The closed-form flash backward of ``attention_ref``: what the
+    backward kernel computes, from the forward's saved (out, lse) and the
+    cotangent ``do``, with the scores rebuilt whole.
+
+    delta = rowsum(do * out) in fp32, p = exp(s - lse) in fp32,
+    ds = p * (dp - delta) with dp = do v^T; do is cast to q's dtype before
+    its products and every product accumulates in fp32 (the reference's
+    rounding points). dbias sums ds over the rep = N/B groups that share a
+    bias; dmask sums it over heads and query rows. Returns (dq, dk, dv in
+    q's dtype, dbias in the bias's dtype or None, dmask fp32 or None)."""
+    n, sq, h, d = q.shape
+    f32 = torch.float32
+    s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * scale
+    bias4 = None
+    if bias is not None:
+        bias4 = bias[None] if bias.ndim == 3 else bias
+        b = bias4.shape[0]
+        s = s.reshape((b, n // b) + s.shape[1:])
+        s = s + bias4.float()[:, None]
+        s = s.reshape((n,) + s.shape[2:])
+    if mask is not None:
+        s = s + mask.float()[:, None, None, :]
+    p = torch.exp(s - lse[..., None])                         # (N, H, Sq, Skv)
+    gf = do.to(q.dtype).float()
+    delta = torch.einsum("nqhd,nqhd->nhq", do.float(), out.float())
+    dp = torch.einsum("nqhd,nkhd->nhqk", gf, v.float())
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("nhqk,nqhd->nkhd", p, gf)
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k.float()) * scale
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q.float()) * scale
+    dbias = dmask = None
+    if bias is not None:
+        b = bias4.shape[0]
+        dbias = ds.reshape((b, n // b) + ds.shape[1:]).sum(dim=1)
+        dbias = dbias.reshape(bias.shape).to(bias.dtype)
+    if mask is not None:
+        dmask = ds.sum(dim=(1, 2)).to(f32)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dmask)
+
+
+def bias_dropout_add_ref(x: torch.Tensor, b: torch.Tensor | None,
+                         residual: torch.Tensor, keep: torch.Tensor | None,
+                         rate: float) -> torch.Tensor:
+    """residual + dropout(x + b, rate) in fp32, in the residual's dtype.
+    ``keep`` is a 0/1 mask that broadcasts against x (the full shape, or the
+    reduced shape with the shared axis of size 1); keep=None or rate=0 means
+    no dropout, b=None no bias."""
+    y = x.float()
+    if b is not None:
+        y = y + b.float()
+    if keep is not None and rate > 0.0:
+        y = y * keep.float() / (1.0 - rate)
+    return (residual.float() + y).to(residual.dtype)
+
+
 def triangle_mult_ref(a_lin: torch.Tensor, ga: torch.Tensor,
                       mask: torch.Tensor, b_full: torch.Tensor,
                       gamma: torch.Tensor, beta: torch.Tensor,

@@ -1,11 +1,18 @@
 """Launch wrappers of the fused triangular multiplicative update
 (``csrc/triangle_mult.cu``) and the fused outer-product-mean
-(``csrc/outer_product_mean.cu``) CUDA kernels.
+(``csrc/outer_product_mean.cu``) CUDA kernels, and their recompute
+backwards.
 
-They replace ``fused_triangle_pallas`` and ``fused_opm_pallas``
+The kernels replace ``fused_triangle_pallas`` and ``fused_opm_pallas``
 (src/repro/kernels/triangle.py). The wrappers take CUDA tensors only;
 ``ops.fused_triangle_mult`` and ``ops.fused_outer_product_mean`` route CPU
 tensors to the plain versions. The kernels choose their own tiles.
+
+``triangle_mult_bwd`` and ``opm_bwd`` are the reference's backwards, which
+it computes outside any Pallas kernel, ported to PyTorch as they are: per
+block of j they rebuild the product from the saved inputs (and K7's LN
+``mean``/``inv``) and the saved output, so no (B, I, J, C) or
+(B, I, J, C, C) tensor is formed whole. They run the same on any device.
 """
 from __future__ import annotations
 
@@ -118,3 +125,116 @@ def fused_opm_cuda(a, b_full, mask_a, mask_b, w, bias):
         _build.DTYPE_CODES[dt], torch.cuda.current_stream(dev).cuda_stream)
     _build.check("outer_product_mean", err)
     return out
+
+
+# The j block of the recompute backwards: the reference's default
+# (``_DEFAULT_TRI_TILE`` and ``_DEFAULT_OPM_TILE`` in src/repro/kernels/ops.py).
+BWD_J_BLOCK = 128
+OPM_NORM_EPS = 1e-3
+
+
+def triangle_mult_bwd(eps: float, res, dout: torch.Tensor, *,
+                      j_block: int = BWD_J_BLOCK, need_dmask: bool = True):
+    """Recompute backward of the fused triangle update: the gradients of
+    every input from the saved (a_lin, ga, mask, b_full, gamma, beta, w_out,
+    b_out, g_lin, g_bias, mean, inv, out) and the cotangent ``dout``, the
+    product rebuilt per block of j. Each gradient is in its input's dtype;
+    the mask's is None unless ``need_dmask``."""
+    (a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin, g_bias,
+     mean, inv, out) = res
+    f32 = torch.float32
+    sig = torch.sigmoid(ga.float())
+    u = (a_lin.float() * sig).to(a_lin.dtype)
+    a = u * mask.to(a_lin.dtype)[..., None]
+    af = a.float()
+    gam, bet, wf = gamma.float(), beta.float(), w_out.float()
+    gbf = g_bias.float()
+    da = torch.zeros(a.shape, dtype=f32, device=a.device)
+    dw = torch.zeros(w_out.shape, dtype=f32, device=a.device)
+    dgamma = torch.zeros(gamma.shape, dtype=f32, device=a.device)
+    dbeta = torch.zeros(beta.shape, dtype=f32, device=a.device)
+    dbo = torch.zeros(b_out.shape, dtype=f32, device=a.device)
+    dgb = torch.zeros(g_bias.shape, dtype=f32, device=a.device)
+    dbs, dgls = [], []
+    for j0 in range(0, b_full.shape[1], j_block):
+        sl = slice(j0, j0 + j_block)
+        b_blk = b_full[:, sl].float()
+        mean_b, inv_b = mean[:, :, sl, None], inv[:, :, sl, None]
+        o = torch.einsum("bikc,bjkc->bijc", af, b_blk)
+        xhat = (o - mean_b) * inv_b
+        y = (xhat * gam + bet).to(a.dtype)
+        s = torch.sigmoid(g_lin[:, :, sl].float() + gbf)
+        gf = dout[:, :, sl].float()
+        dz = gf * s
+        # Output-gate cotangent from the saved output: g·z·s(1-s) = g·out·(1-s).
+        dgl = gf * out[:, :, sl].float() * (1.0 - s)
+        dy = torch.einsum("bijd,cd->bijc", dz, wf)
+        dw += torch.einsum("bijc,bijd->cd", y.float(), dz)
+        dgamma += torch.einsum("bijc,bijc->c", dy, xhat)
+        dbeta += dy.sum(dim=(0, 1, 2))
+        dbo += dz.sum(dim=(0, 1, 2))
+        dgb += dgl.sum(dim=(0, 1, 2))
+        gg = dy * gam
+        do = inv_b * (gg - gg.mean(dim=-1, keepdim=True)
+                      - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
+        da += torch.einsum("bijc,bjkc->bikc", do, b_blk)
+        dbs.append(torch.einsum("bijc,bikc->bjkc", do, af))
+        dgls.append(dgl)
+    db_full = torch.cat(dbs, dim=1)
+    dgl = torch.cat(dgls, dim=2)
+    # Input-gating adjoints (a = (a_lin * sigmoid(ga)).to(dt) * mask).
+    da_m = da * mask.float()[..., None]
+    da_lin = (da_m * sig).to(a_lin.dtype)
+    dga = (da_m * a_lin.float() * sig * (1.0 - sig)).to(ga.dtype)
+    dmask = (torch.einsum("bikc,bikc->bik", da, u.float()).to(mask.dtype)
+             if need_dmask else None)
+    return (da_lin, dga, dmask, db_full.to(b_full.dtype),
+            dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dw.to(w_out.dtype),
+            dbo.to(b_out.dtype), dgl.to(g_lin.dtype), dgb.to(g_bias.dtype))
+
+
+def opm_bwd(res, dout: torch.Tensor, *, j_block: int = BWD_J_BLOCK,
+            need_dmask: bool = True):
+    """Recompute backward of the fused outer-product-mean from the saved
+    (a, b_full, mask_a, mask_b, w, bias, out) and the cotangent ``dout``:
+    per block of j the cotangent goes through the reassociated contraction,
+    so the transients are (B, S, j block, C, D) half-contractions, never a
+    (B, I, J, C, C) tensor. The saved output gives the mask-norm cotangent
+    (sum_x ov·(g @ w^T) = sum_d (out - bias)·g). Each gradient is in its
+    input's dtype; the masks' are None unless ``need_dmask``."""
+    a, b_full, mask_a, mask_b, w, bias, out = res
+    f32 = torch.float32
+    c = a.shape[-1]
+    maf = mask_a.float()
+    af = a.float()
+    w3 = w.reshape(c, c, w.shape[-1]).to(a.dtype).float()
+    dev = a.device
+    da = torch.zeros(a.shape, dtype=f32, device=dev)
+    dma = torch.zeros(mask_a.shape, dtype=f32, device=dev)
+    dw = torch.zeros(w.shape, dtype=f32, device=dev)
+    dbias = torch.zeros(bias.shape, dtype=f32, device=dev)
+    dbs, dmbs = [], []
+    for j0 in range(0, b_full.shape[2], j_block):
+        sl = slice(j0, j0 + j_block)
+        b_blk, mb_blk = b_full[:, :, sl].float(), mask_b[:, :, sl].float()
+        gf = dout[:, :, sl].float()
+        denom = torch.einsum("bsi,bsj->bij", maf, mb_blk) + OPM_NORM_EPS
+        u = gf / denom[..., None]
+        h = torch.einsum("bsjy,xyd->bsjxd", b_blk, w3)
+        da += torch.einsum("bijd,bsjxd->bsix", u, h)
+        del h
+        dh = torch.einsum("bsix,bijd->bsjxd", af, u)
+        dbs.append(torch.einsum("bsjxd,xyd->bsjy", dh, w3))
+        dw += torch.einsum("bsjy,bsjxd->xyd", b_blk, dh).reshape(c * c, -1)
+        del dh
+        dbias += gf.sum(dim=(0, 1, 2))
+        if need_dmask:
+            dnorm = -torch.einsum("bijd,bijd->bij", out[:, :, sl].float()
+                                  - bias.float(), gf) / denom
+            dma += torch.einsum("bij,bsj->bsi", dnorm, mb_blk)
+            dmbs.append(torch.einsum("bij,bsi->bsj", dnorm, maf))
+    db_full = torch.cat(dbs, dim=2)
+    dmb = torch.cat(dmbs, dim=2).to(mask_b.dtype) if need_dmask else None
+    return (da.to(a.dtype), db_full.to(b_full.dtype),
+            dma.to(mask_a.dtype) if need_dmask else None, dmb,
+            dw.to(w.dtype), dbias.to(bias.dtype))

@@ -1,6 +1,8 @@
 """Parameter initialization and application helpers.
 
-Parameters are nested dicts of tensors, as in the reference. ``dense``
+Parameters are nested dicts of tensors, as in the reference (the
+Evoformer's blocks a list of dicts); ``tree_map`` and ``tree_leaves`` walk
+them. ``dense``
 weights keep the reference's ``(d_in, d_out)`` layout, so a weight crosses
 between the two packages unchanged. Initializers draw from an explicit CPU
 ``torch.Generator``; the caller moves the finished tree to its device.
@@ -43,3 +45,23 @@ def dense(p: Params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(dt)
     return y
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over trees of one structure (dicts and lists
+    of tensors)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in a fixed order (dict insertion order, list order)."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]

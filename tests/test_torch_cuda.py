@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
 from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +90,88 @@ def test_flash_attention_kernel(gen, n, sq, skv, h, d, nb, bias, mask, dtype,
     _close(lse, want_lse, 1e-4)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,sq,skv,h,d,nb,bias,mask", [
+    (6, 40, 40, 2, 32, 2, True, True),      # rep 3
+    (3, 20, 70, 2, 16, 1, True, True),      # ragged last KV tile
+    (2, 130, 130, 1, 32, 1, False, False),  # ragged q tile, no bias/mask
+    (4, 12, 12, 2, 16, 4, False, True),
+    (3, 33, 45, 2, 32, 3, True, True),      # rep 1: dbias from the dq sweep
+])
+def test_flash_attention_bwd_kernel(gen, n, sq, skv, h, d, nb, bias, mask,
+                                    dtype, tol):
+    """The backward against attention_bwd_ref on the forward kernel's own
+    (out, lse), q/k/v as strided views, a fully masked row, the mask's
+    gradient asked for."""
+    qkv = torch.randn((n, max(sq, skv), 3 * h * d), generator=gen,
+                      device="cuda").to(dtype)
+    q = qkv[:, :sq, :h * d].unflatten(-1, (h, d))
+    k = qkv[:, :skv, h * d:2 * h * d].unflatten(-1, (h, d))
+    v = qkv[:, :skv, 2 * h * d:].unflatten(-1, (h, d))
+    b = (torch.randn((nb, h, sq, skv), generator=gen, device="cuda").to(dtype)
+         if bias else None)
+    m = None
+    if mask:
+        keep = torch.rand((n, skv), generator=gen, device="cuda") < 0.8
+        keep[0] = False                     # one fully masked row
+        m = torch.where(keep, 0.0, -1e9).float()
+    scale = d ** -0.5
+    out, lse = flash_attention_cuda(q, k, v, b, m, scale)
+    do = torch.randn((n, sq, h, d), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    got = flash_attention_bwd_cuda(q, k, v, out, do, lse, b, m, scale,
+                                   need_dmask=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.attention_bwd_ref(q, k, v, do, out, lse, b, m, scale)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close(g, w, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shared_axis", [1, 2])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("keep_dtype", [torch.float32, torch.bool])
+def test_bias_dropout_add_kernel(gen, with_bias, shared_axis, keep_dtype,
+                                 dtype, tol):
+    shape = (1, 12, 20, 128)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    res = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(128, generator=gen, device="cuda") if with_bias else None
+    reduced = list(shape)
+    reduced[shared_axis] = 1
+    keep = (torch.rand(reduced, generator=gen, device="cuda") < 0.75)
+    keep = keep.to(keep_dtype)
+    _build.reset_launches()
+    got = ops.bias_dropout_add(x, b, res, 0.25, keep)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bias_dropout_add"] == 1
+    _close(got, ref.bias_dropout_add_ref(x, b, res, keep, 0.25), tol)
+    if b is not None:
+        _build.reset_launches()
+        got = ops.bias_dropout_add(x, b, res)        # bias, no dropout
+        assert _build.LAUNCHES["bias_dropout_add"] == 1
+        _close(got, ref.bias_dropout_add_ref(x, b, res, None, 0.0), tol)
+
+
+def test_autograd_backward_launches_the_attention_backward(gen):
+    q = torch.randn((2, 40, 2, 32), generator=gen, device="cuda",
+                    requires_grad=True)
+    bias = torch.randn((1, 2, 40, 40), generator=gen, device="cuda",
+                       requires_grad=True)
+    _build.reset_launches()
+    ops.fused_attention(q, q, q, bias=bias).square().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_fwd"] == 1
+    assert _build.LAUNCHES["flash_attention_bwd"] == 1
+    assert q.grad.shape == q.shape and bias.grad.shape == bias.shape
+
+
 def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
     x = torch.randn((4, 8), generator=gen, device="cuda")
     with pytest.raises(ValueError):
@@ -98,6 +182,20 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
         flash_attention_cuda(q, q, q, None, None, 1.0)
     with pytest.raises(TypeError):
         ops.bias_sigmoid_mul(x.half(), torch.zeros(8, device="cuda"), x.half())
+    lse = torch.zeros((2, 1, 5), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd_cuda(q, q, q, q, q, lse, None, None, 1.0)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(*(t.half() for t in (q, q, q, q, q)), lse,
+                                 None, None, 1.0)
+    with pytest.raises(TypeError):
+        bias_dropout_add_cuda(x.half(), None, x.half(), None, 0.0)
+    with pytest.raises(ValueError, match="C % 8"):
+        bias_dropout_add_cuda(x[:, :6].contiguous(), None,
+                              x[:, :6].contiguous(), None, 0.0)
+    with pytest.raises(ValueError, match="broadcast"):
+        bias_dropout_add_cuda(x, None, x, torch.ones((3, 1), device="cuda"),
+                              0.25)
 
 
 def _randn(gen, shape, scale=1.0, dtype=torch.float32):

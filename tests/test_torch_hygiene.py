@@ -16,10 +16,13 @@ from repro_torch.configs import SMOKE
 from repro_torch.data import protein_batches
 from repro_torch.exec import FastFold
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.fused_elementwise import bias_sigmoid_mul_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
+                                                   bias_sigmoid_mul_cuda)
 from repro_torch.kernels.layer_norm import layer_norm_cuda
 from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
+from repro_torch.train import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -72,8 +75,9 @@ def test_fastfold_defaults_to_the_card(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
-    """A CPU forward launches nothing: the counters stay at 0, and no
-    kernel library is even looked up."""
+    """A CPU forward, training step and every op's backward launch
+    nothing: the counters stay at 0, and no kernel library is even looked
+    up."""
     def no_kernel(name):
         raise AssertionError(f"kernel {name} reached from a CPU tensor")
 
@@ -90,7 +94,33 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
                         torch.randn(2, 5, 1, 8))
     ops.fused_triangle_mult(*_triangle_args())
     ops.fused_outer_product_mean(*_opm_args())
+    keep = torch.ones(4, 1)
+    ops.bias_dropout_add(x, torch.zeros(8), x, 0.25, keep)
+    # The backwards too: a CPU training step launches nothing either.
+    q = torch.randn(2, 5, 1, 8, requires_grad=True)
+    ops.fused_attention(q, q, q, bias=torch.randn(1, 1, 5, 5)).sum().backward()
+    xg = x.clone().requires_grad_(True)
+    ops.bias_dropout_add(xg, None, x, 0.25, keep).sum().backward()
+    init, step = make_train_step(ff.loss_fn)
+    _, metrics = step(init(ff.init(seed=0)), batch,
+                      torch.Generator().manual_seed(0))
+    assert torch.isfinite(metrics["loss"])
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+def test_cpu_inference_calls_neither_training_kernel(monkeypatch):
+    """A CPU inference forward reaches neither the bias-dropout-add nor the
+    attention backward wrapper, nor their plain versions."""
+    called = []
+    for name in ("bias_dropout_add_cuda", "flash_attention_bwd_cuda"):
+        monkeypatch.setattr(ops, name, lambda *a, n=name: called.append(n))
+    for name in ("bias_dropout_add_ref", "attention_bwd_ref"):
+        monkeypatch.setattr(ops.ref, name, lambda *a, n=name: called.append(n))
+    ff = FastFold(SMOKE, device="cpu")
+    batch = next(protein_batches(batch=1, n_seq=3, n_res=6, seed=0)).as_dict()
+    out = ff.forward(ff.init(seed=0), batch)
+    assert torch.isfinite(out["coords"]).all()
+    assert called == []
 
 
 def _triangle_args(c=32, d=32):
@@ -121,6 +151,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fused_triangle_cuda(*_triangle_args())
     with pytest.raises(ValueError, match="CUDA"):
         fused_opm_cuda(*_opm_args())
+    lse = torch.zeros(2, 1, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, q, q, q, q, lse, None, None, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        bias_dropout_add_cuda(x, None, x, torch.ones(4, 1), 0.25)
 
 
 def test_build_targets_sm90a_in_ignored_dir():
@@ -135,7 +170,8 @@ def test_build_targets_sm90a_in_ignored_dir():
     sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert sources == set(_build.SIGNATURES)
     assert sources == {"layer_norm", "bias_sigmoid_mul", "flash_attention_fwd",
-                       "triangle_mult", "outer_product_mean"}
+                       "triangle_mult", "outer_product_mean",
+                       "flash_attention_bwd", "bias_dropout_add"}
 
 
 FAKE_NVCC = """\

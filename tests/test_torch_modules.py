@@ -30,7 +30,8 @@ from repro_torch.core import structure as tst
 from repro_torch.layers import attention as tattn
 from repro_torch.layers import mlp as tmlp
 from repro_torch.weights import params_from_numpy, randomize_tree
-from torch_parity import MODULE_TOL, assert_close, both, normal
+from torch_parity import (MODULE_TOL, assert_close, both, jax_dropout_keeps,
+                          normal)
 
 DT = ["float32", "bfloat16"]
 B, S, R = 2, 6, 12
@@ -236,3 +237,58 @@ def test_embed_recycle(dtype, feats):
                                tuple(torch.as_tensor(x) for x in prev), cfg_t)
     assert_close(tm, jm, MODULE_TOL[dtype], "msa")
     assert_close(tz, jz, MODULE_TOL[dtype], "pair")
+
+
+@pytest.mark.parametrize("dtype", DT)
+def test_evoformer_block_train_dropout(dtype, block_params, feats):
+    """One block with train=True and the reference's own dropout masks
+    (drawn from its rng as it draws them, handed to the port): the outputs,
+    and in fp32 the gradients of every parameter of the block and of both
+    inputs. Gradients through a whole block are not held in bf16: there the
+    reference's own bf16 gradients differ from its fp32 ones by up to 7%
+    of their largest value at this size (measured with these inputs), the
+    rounding of both directions compounding over the block, as far as the
+    port's bf16 gradients differ from either; each op's backward is held in
+    bf16 in test_torch_kernels."""
+    jp, tp = block_params
+    msa_j, msa_t = both(feats["msa"], dtype)
+    pair_j, pair_t = both(feats["pair"], dtype)
+    mj, mt = _masks(feats)
+    rng = jax.random.PRNGKey(5)
+    # The stack splits its rng over blocks; one block gets the first key.
+    keeps = jax_dropout_keeps(rng, dataclasses.replace(J_EVO, n_blocks=1),
+                              (B, S, R))[0]
+    block_key = jax.random.split(rng, 1)[0]
+
+    def j_loss(p, m, z):
+        m2, z2 = jevo.evoformer_block(p, m, z, mj["msa_mask"], mj["seq_mask"],
+                                      mj["pair_mask"], dist=LocalDist(),
+                                      cfg=J_EVO, rng=block_key, train=True)
+        return (jnp.sum(jnp.sin(m2.astype(jnp.float32)))
+                + jnp.sum(jnp.sin(z2.astype(jnp.float32)))), (m2, z2)
+
+    with use_plan(preset("default")):
+        if dtype == "float32":
+            (_, (jm, jz)), jg = jax.value_and_grad(
+                j_loss, argnums=(0, 1, 2), has_aux=True)(jp, msa_j, pair_j)
+        else:
+            _, (jm, jz) = j_loss(jp, msa_j, pair_j)
+    live = jax.tree.map(lambda t: t.clone().requires_grad_(True), tp)
+    m_in = msa_t.clone().requires_grad_(True)
+    z_in = pair_t.clone().requires_grad_(True)
+    tm, tz = tevo.evoformer_block(live, m_in, z_in, mt["msa_mask"],
+                                  mt["seq_mask"], mt["pair_mask"], cfg=T_EVO,
+                                  keeps=keeps)
+    assert_close(tm, jm, MODULE_TOL[dtype], "msa")
+    assert_close(tz, jz, MODULE_TOL[dtype], "pair")
+    if dtype != "float32":
+        return
+    (torch.sin(tm.float()).sum() + torch.sin(tz.float()).sum()).backward()
+    assert_close(m_in.grad, jg[1], MODULE_TOL[dtype], "d msa")
+    assert_close(z_in.grad, jg[2], MODULE_TOL[dtype], "d pair")
+    want = dict(jax.tree_util.tree_leaves_with_path(jg[0]))
+    got = dict(jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.grad, live)))
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        assert_close(got[path], w, MODULE_TOL[dtype], jax.tree_util.keystr(path))

@@ -9,9 +9,12 @@ Tolerances scale with the reference's magnitude:
         is 2**-8 relative, and the two frameworks round at a few different
         places inside a module.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+from repro_torch.core.evoformer import DROPOUT_SITES
 
 # The reference runs at jax_default_matmul_precision="highest"
 # (tests/conftest.py); the port's float32 products stay in full float32.
@@ -49,3 +52,26 @@ def both(x: np.ndarray, dtype: str):
     """The same numpy array as a JAX array and a torch CPU tensor."""
     jdt, tdt = DTYPES[dtype]
     return jnp.asarray(x).astype(jdt), torch.as_tensor(x).to(tdt)
+
+
+def jax_dropout_keeps(rng, evo_cfg, batch_shape) -> list[dict]:
+    """The reference's own dropout masks for one call of its Evoformer
+    stack, drawn as it draws them: ``split(rng, n_blocks)``, then
+    ``split(., 8)`` per block, site i taking key i, and
+    ``bernoulli(1 - rate)`` at the update's shape with the shared axis of
+    size 1. Returned as the port's per-block dicts of fp32 0/1 tensors."""
+    b, s, r = batch_shape
+    keeps = []
+    for block_key in jax.random.split(rng, evo_cfg.n_blocks):
+        keys = jax.random.split(block_key, 8)
+        block = {}
+        for i, (site, axis) in enumerate(DROPOUT_SITES.items()):
+            if site == "msa_row":
+                shape, rate = [b, s, r, evo_cfg.d_msa], evo_cfg.dropout_msa
+            else:
+                shape, rate = [b, r, r, evo_cfg.d_pair], evo_cfg.dropout_pair
+            shape[axis] = 1
+            keep = jax.random.bernoulli(keys[i], 1.0 - rate, tuple(shape))
+            block[site] = torch.as_tensor(np.asarray(keep, np.float32))
+        keeps.append(block)
+    return keeps
