@@ -6,36 +6,52 @@
 Phases, each printing JSON lines:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel built from ``src/repro_torch/csrc`` by nvcc;
-  3. survey  — every distinct call the FULL-width main path makes to a
+  3. survey  — every distinct call the FULL-width main paths make to a
                kernel (shape, dtype, memory layout), recorded on a forward
-               cut to one block for each served request's shape;
+               cut to one block for each served request's shape, under the
+               default plan and under attention-oracle
+               (``KernelPolicy(attention="oracle")``: every attention site
+               materializes its scores and runs the fused softmax);
   4. kernels — each kernel against its plain PyTorch version on the card, at
                every surveyed call and at edge cases, in fp32 and bf16, with
                the stated tolerances; kernel, plain and library-call times
                (CUDA events, cold L2, median of 20 runs) beside the bound for
                the same work, where the library call of the triangle and OPM
-               kernels is the cuBLAS composition the port ran before them;
+               kernels is the cuBLAS composition the port ran before them,
+               and that of the fused softmax ``torch.softmax`` on logits
+               summed beforehand (its whole composition timed beside it);
   5. serve   — ``FastFold(FULL).serve`` on three requests at full width
                (48 blocks, n_recycle = 3) with every weight randomised from
                a seed, after an uncounted warm-up pass at each shape: outputs
                finite, launch counts equal to the count the config gives (no
-               bias-dropout-add and no attention backward);
-  6. parity  — the same model cut to 2 blocks and no recycling, in fp32, on
+               bias-dropout-add, no attention backward, no fused softmax);
+               then the same under attention-oracle (its own counts set to 0
+               first: the fused softmax 4 times a block, no flash attention),
+               its fold latency beside the default path's;
+  6. smoke   — one ``FastFold(SMOKE)`` request on the card under the default
+               plan: its widths lie outside the attention, triangle and OPM
+               kernels, so it runs the materialized branches (the fused
+               softmax, LayerNorm and gating kernels), with the launch counts
+               the config gives and fp32 parity with the CPU;
+  7. parity  — the same model cut to 2 blocks and no recycling, in fp32, on
                every served request, once on the card (the kernels) and once
-               with ``device="cpu"`` (the plain versions), held together;
-  7. train   — ``make_train_step(FastFold(FULL).loss_fn)`` on the port's own
+               with ``device="cpu"`` (the plain versions), held together,
+               under the default plan, attention-oracle, triangle-oracle and
+               oracle;
+  8. train   — ``make_train_step(FastFold(FULL).loss_fn)`` on the port's own
                init: r = 256, s = 128, batch 1, bf16, n_recycle = 3, remat
                per block, dropout from a seeded generator; three steps, the
                first uncounted: losses and gradient norms finite, no skipped
                step, launch counts equal to the count the config gives, warm
-               step time and peak device memory;
-  8. train parity — FULL width cut to 2 blocks, no recycling, no dropout,
+               step time and peak device memory; then two steps (one
+               uncounted) under attention-oracle, with its own counts;
+  9. train parity — FULL width cut to 2 blocks, no recycling, no dropout,
                fp32, randomised weights, r = 128, s = 64: the gradient of
                every parameter on the card and with ``device="cpu"``, held
-               together.
+               together, under the default plan and under attention-oracle.
 The survey (3) also records every kernel call of one training step cut to
-one block, so phase 4 checks the training kernels at the training shapes.
-The last two lines are the card's ``nvidia-smi`` line and
+one block, under both plans, so phase 4 checks the training kernels at the
+training shapes. The last two lines are the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that. It needs the repository's ``src/`` beside it and a CUDA device.
 """
@@ -70,7 +86,18 @@ TOL = {
     "outer_product_mean": {"float32": 1e-4, "bfloat16": 2e-2},
     "flash_attention_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
     "bias_dropout_add": {"float32": 1e-4, "bfloat16": 1e-2},
+    "fused_softmax": {"float32": 1e-5, "bfloat16": 2 ** -7},
 }
+# The fused softmax is held element by element, not to max(1, max|plain|):
+# its outputs are ~1/C, far below such a limit. |kernel - plain| <=
+# max(TOL * |plain|, SOFTMAX_ATOL) at every element. It sums a row in fp32
+# in another order than the plain version (a few fp32 ulps) and rounds its
+# output once to the dtype: a bf16 ulp is at most 2**-7 of the value. A row
+# whose every logit is -inf is NaN in both (the reference's 0/0), at the
+# same places. Each check also shows that the limit rejects the plain
+# version with the mask or the bias left out, or with the rows masked by
+# -1e9 written as 0.
+SOFTMAX_ATOL = 1e-9
 # The attention backward sums S*D terms in another order than the plain
 # version's GEMMs and rounds each output once to the dtype; the
 # bias-dropout-add kernel computes the plain version's fp32 expression and
@@ -88,8 +115,14 @@ E2E_TOL = 1e-3
 # Training, fp32, card vs CPU, 2 blocks: every parameter's gradient within
 # GRAD_TOL * max(1, max|cpu gradient|) of that leaf.
 GRAD_TOL = 1e-3
-# Kernels that only the training step runs.
-TRAIN_KERNELS = ("flash_attention_bwd", "bias_dropout_add")
+# The plans the script drives, by the name its lines use.
+PLAN_NAMES = ("default", "attention-oracle", "triangle-oracle", "oracle")
+# The path whose launches stand in a kernel's line: the default plan's
+# serving for the inference kernels, its training step for the two that
+# only training runs, serving under attention-oracle for the fused softmax.
+KERNEL_PATHS = {"flash_attention_bwd": "train",
+                "bias_dropout_add": "train",
+                "fused_softmax": "serve attention-oracle"}
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -110,7 +143,18 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:469"),
     "bias_dropout_add": ("src/repro_torch/csrc/bias_dropout_add.cu",
                          "src/repro/kernels/fused_elementwise.py:73"),
+    "fused_softmax": ("src/repro_torch/csrc/fused_softmax.cu",
+                      "src/repro/kernels/fused_softmax.py:60"),
 }
+
+
+def plan_of(name: str):
+    """The ExecutionPlan of one of ``PLAN_NAMES``."""
+    from repro_torch.exec.plan import ExecutionPlan, KernelPolicy, preset
+
+    if name == "attention-oracle":
+        return ExecutionPlan(kernels=KernelPolicy(attention="oracle"))
+    return preset(name)
 
 
 def emit(obj) -> None:
@@ -172,6 +216,14 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / scale
 
 
+def elem_rel_err(got, want, tol: float) -> float:
+    """max |got - want| / max(|want|, SOFTMAX_ATOL / tol) over the elements:
+    at most ``tol`` exactly when every element is within max(tol * |want|,
+    SOFTMAX_ATOL)."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / w.abs().clamp_min(SOFTMAX_ATOL / tol)).max().item()
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -216,28 +268,28 @@ def _layout(ts):
 
 
 def survey_phase(torch, tree, batches):
-    """Every distinct call the main path makes to a kernel wrapper, recorded
+    """Every distinct call the main paths make to a kernel wrapper, recorded
     by wrapping the wrappers ``ops`` calls: one FULL-width forward for each
     request shape, cut to one Evoformer block (every block hands its kernels
     the same shapes) and no recycling (every pass hands them the same
     shapes), then one training step of the same cut at the training shape
-    (r = 256, s = 128) with dropout. Returns {kernel: {signature: request
-    name}}; these launches happen before the main path's counts are set to
-    0."""
+    (r = 256, s = 128) with dropout; each under the default plan and under
+    attention-oracle. Returns {kernel: {signature: request name}}; these
+    launches happen before the main paths' counts are set to 0."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.kernels import ops
     from repro_torch.train import make_train_step
     from repro_torch.weights import params_from_numpy
 
-    ff = FastFold(_cut(FULL, 1))
     params = params_from_numpy(dict(tree, evoformer=_slice_tree(
         tree["evoformer"], 1)), device="cuda")
     seen = {k: {} for k in TOL}
     where = [None]
     names = ("layer_norm_cuda", "bias_sigmoid_mul_cuda",
              "flash_attention_cuda", "fused_triangle_cuda", "fused_opm_cuda",
-             "flash_attention_bwd_cuda", "bias_dropout_add_cuda")
+             "flash_attention_bwd_cuda", "bias_dropout_add_cuda",
+             "fused_softmax_cuda")
     orig = tuple(getattr(ops, n) for n in names)
 
     def ln(x, gamma, beta, eps=1e-5):
@@ -285,27 +337,38 @@ def survey_phase(torch, tree, batches):
              rate, str(x.dtype)[6:]), where[0])
         return orig[6](x, b, residual, keep, rate)
 
-    for n, fn in zip(names, (ln, bsm, attn, tri, opm, attn_bwd, bda)):
+    def softmax(x, bias, mask, scale):
+        seen["fused_softmax"].setdefault(
+            (tuple(x.shape), None if bias is None else bias.shape[0],
+             mask is not None, scale, str(x.dtype)[6:]), where[0])
+        return orig[7](x, bias, mask, scale)
+
+    for n, fn in zip(names, (ln, bsm, attn, tri, opm, attn_bwd, bda, softmax)):
         setattr(ops, n, fn)
+    metrics = {}
     try:
-        done = set()
-        for (name, kw), batch in zip(REQUESTS, batches):
-            if (kw["n_res"], kw["n_seq"]) in done:
-                continue
-            done.add((kw["n_res"], kw["n_seq"]))
-            where[0] = name
-            ff.forward(params, batch)
-        where[0] = f"train r{TRAIN_SHAPE['n_res']}_s{TRAIN_SHAPE['n_seq']}"
-        init, step = make_train_step(ff.loss_fn)
-        _, metrics = step(init(params), train_batches(1)[0],
-                          torch.Generator(device="cuda").manual_seed(SEED))
+        for plan in ("default", "attention-oracle"):
+            ff = FastFold(_cut(FULL, 1), plan=plan_of(plan))
+            done = set()
+            for (name, kw), batch in zip(REQUESTS, batches):
+                if (kw["n_res"], kw["n_seq"]) in done:
+                    continue
+                done.add((kw["n_res"], kw["n_seq"]))
+                where[0] = f"{name} {plan}"
+                ff.forward(params, batch)
+            where[0] = (f"train r{TRAIN_SHAPE['n_res']}_s{TRAIN_SHAPE['n_seq']}"
+                        f" {plan}")
+            init, step = make_train_step(ff.loss_fn)
+            _, m = step(init(params), train_batches(1)[0],
+                        torch.Generator(device="cuda").manual_seed(SEED))
+            metrics[plan] = {"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"])}
         torch.cuda.synchronize()
     finally:
         for n, fn in zip(names, orig):
             setattr(ops, n, fn)
     emit({"phase": "survey", "cut": {"n_blocks": 1, "n_recycle": 0},
-          "train_step": {"loss": float(metrics["loss"]),
-                         "grad_norm": float(metrics["grad_norm"])},
+          "train_step": metrics,
           "distinct_calls": {k: len(v) for k, v in seen.items()}})
     return seen
 
@@ -320,6 +383,7 @@ def kernel_phase(torch, timer, seen):
                                                      flash_attention_cuda)
     from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
                                                        bias_sigmoid_mul_cuda)
+    from repro_torch.kernels.fused_softmax import fused_softmax_cuda
     from repro_torch.kernels.layer_norm import layer_norm_cuda
     from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
@@ -333,8 +397,12 @@ def kernel_phase(torch, timer, seen):
 
     results = []
 
-    def record(kernel, case, dtype, shape, got, want, timing=None, extra=None):
-        err, rel = rel_err(got, want)
+    def record(kernel, case, dtype, shape, got, want, timing=None, extra=None,
+               rel=None):
+        """``rel``: the error as the kernel's rule measures it, where that
+        is not ``rel_err``'s."""
+        err, rel_max1 = rel_err(got, want)
+        rel = rel_max1 if rel is None else rel
         ok = rel <= TOL[kernel][dtype]
         row = {"phase": "kernel", "kernel": kernel, "case": case,
                "dtype": dtype, "shape": list(shape), "max_abs_err": err,
@@ -663,6 +731,89 @@ def kernel_phase(torch, timer, seen):
                {"main_path": main, "keep_shape": keep_shape,
                 "keep_dtype": keep_dt, "bias": with_bias, "rate": rate})
 
+    # --- K4 fused softmax on (N, H, R, C) scores: the key mask drops ~10%
+    # of keys, masks every key of n_masked rows with -1e9 (padded residues)
+    # and of inf_rows rows with -inf.
+    def check_softmax(case, shape, nb, wm, scale, dt, main, n_masked=2,
+                      inf_rows=0):
+        n, h, r, c = shape
+        x = randn(shape, dt, 4.0)
+        bias = randn((nb, h, r, c), dt) if nb else None
+        mask = None
+        if wm:
+            keep = torch.rand((n, c), generator=gen, device="cuda") < 0.9
+            mask = torch.where(keep, 0.0, -1e9).float()
+            mask[:n_masked] = -1e9
+            if inf_rows:
+                mask[n - inf_rows:] = float("-inf")
+        got = fused_softmax_cuda(x, bias, mask, scale)
+        want = ref.softmax_ref(x, bias, mask, scale)
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            fail(f"fused_softmax {case} {dt}: NaN at other places than the "
+                 "plain version's")
+        tol = TOL["fused_softmax"][dt]
+        want0 = want.masked_fill(nan, 0)
+        rel = elem_rel_err(got.masked_fill(nan, 0), want0, tol)
+        # Controls: wrong outputs the limit must reject wherever they differ
+        # from the plain version at all.
+        controls = {}
+        if wm:
+            controls["mask left out"] = ref.softmax_ref(x, bias, None, scale)
+        if nb:
+            controls["bias left out"] = ref.softmax_ref(x, None, mask, scale)
+        if wm and n_masked and c > 1:
+            controls["-1e9 rows written as 0"] = want.clone()
+            controls["-1e9 rows written as 0"][:n_masked] = 0
+        control_rel = {}
+        for cname, bad in controls.items():
+            bad = bad.masked_fill(nan, 0)
+            if torch.equal(bad, want0):
+                continue
+            control_rel[cname] = elem_rel_err(bad, want0, tol)
+            if control_rel[cname] <= tol:
+                fail(f"fused_softmax {case} {dt}: the limit {tol} does not "
+                     f"reject the control '{cname}' ({control_rel[cname]:.3g})")
+        del controls
+        timing = None
+        rep = n // nb if nb else None
+        if main:
+            # The library call: torch.softmax alone on the fp32 logits, summed
+            # beforehand (outside the timed region); the composition: the
+            # same function in whole-tensor torch ops from x, bias and mask.
+            def logits():
+                acc = x.float() * scale
+                if nb:
+                    acc = (acc.view(nb, rep, h, r, c)
+                           + bias.float()[:, None]).view(n, h, r, c)
+                if wm:
+                    acc = acc + mask.view(n, 1, 1, c)
+                return acc
+
+            pre = logits()
+            t_b, by = bound(nbytes(x, bias, mask, got), 8.0 * x.numel(),
+                            "float32")
+            timing = {
+                "ms": timer(lambda: fused_softmax_cuda(x, bias, mask, scale)),
+                "plain_ms": timer(lambda: ref.softmax_ref(x, bias, mask,
+                                                          scale)),
+                "library_ms": timer(lambda: torch.softmax(pre, -1)),
+                "library_call": "torch.softmax(fp32 logits, -1), the logits "
+                                "summed beforehand",
+                "composition_ms": timer(lambda: torch.softmax(
+                    logits(), -1).to(x.dtype)),
+                "bound_ms": t_b, "bound_by": by}
+            del pre
+        record("fused_softmax", case, dt, shape, got.masked_fill(nan, 0),
+               want0, timing,
+               {"main_path": main, "rep": rep, "bias": bool(nb), "mask": wm,
+                "fully_masked_rows_1e9": n_masked if wm else 0,
+                "fully_masked_rows_inf": inf_rows if wm else 0,
+                "nan_rows": int(nan.any(-1).sum()),
+                "error_rule": "max |kernel - plain| / max(|plain|, "
+                              f"{SOFTMAX_ATOL} / tol), per element",
+                "control_rel_err": control_rel}, rel=rel)
+
     # Every main-path signature in its own dtype (timed), then in the other
     # dtype where the main path has no such call itself.
     checks = {"layer_norm": check_ln, "bias_sigmoid_mul": check_bsm,
@@ -671,7 +822,7 @@ def kernel_phase(torch, timer, seen):
               "triangle_mult": check_tri, "outer_product_mean": check_opm,
               "flash_attention_bwd": lambda case, *a: check_attn_bwd(
                   case, *a[:-2], 2, *a[-2:]),
-              "bias_dropout_add": check_bda}
+              "bias_dropout_add": check_bda, "fused_softmax": check_softmax}
     for kernel, calls in seen.items():
         for sig, req in calls.items():
             checks[kernel](f"{req} main path", *sig, True)
@@ -735,6 +886,21 @@ def kernel_phase(torch, timer, seen):
                 ("full_mask_3d", (5, 11, 16), (5, 11, 16), True, "float32",
                  0.5)]:
             check_bda(case, shape, kshape, wb, kdt, rate, dt, False)
+        # (case, (N, H, R, C), B, mask, -1e9 rows, -inf rows): no bias, no
+        # mask, rep 1, C = 1, ragged C = 200 and 999 (warp per row), 3000
+        # and 16384 (block per row), rows masked with -1e9 and with -inf.
+        for case, shape, nb, wm, nm, ni in [
+                ("no_bias", (8, 4, 64, 128), 0, True, 2, 0),
+                ("no_mask", (6, 2, 50, 96), 3, False, 0, 0),
+                ("rep1", (4, 2, 40, 256), 4, True, 1, 0),
+                ("c1", (4, 2, 8, 1), 2, True, 1, 1),
+                ("c200_ragged", (6, 2, 30, 200), 2, True, 2, 0),
+                ("c999_odd", (3, 2, 8, 999), 1, True, 1, 0),
+                ("c3000_block_per_row", (2, 2, 8, 3000), 2, True, 1, 0),
+                ("c16384", (2, 1, 4, 16384), 1, True, 1, 0),
+                ("masked_rows_1e9", (8, 2, 16, 256), 2, True, 4, 0),
+                ("masked_rows_inf", (8, 2, 16, 256), 2, True, 0, 3)]:
+            check_softmax(case, shape, nb, wm, 32 ** -0.5, dt, False, nm, ni)
     return results
 
 
@@ -742,37 +908,92 @@ def kernel_phase(torch, timer, seen):
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg, passes: int) -> dict[str, int]:
-    """Launches per forward from the config: per Evoformer block 10
-    LayerNorms, 4 attention gates, 4 attentions, 2 fused triangle updates
-    and 1 fused OPM (the triangles' output LN and gate run inside their
-    kernel); per pass 2 LayerNorms in recycling and 2 + 2 per iteration in
-    the structure module."""
+# The Evoformer sites each plan sends to their fused kernels, and the widths
+# those kernels take on the card (HEAD_DIMS in kernels/flash_attention.py,
+# TRI_WIDTHS, OPM_C and OPM_D in kernels/triangle.py). They are stated here
+# apart from ``ops.fused_*_supported``, which choose the model's branches,
+# so that the expected counts hold those choices rather than follow them.
+PLAN_FUSED_SITES = {"default": ("attention", "triangle", "opm"),
+                    "attention-oracle": ("triangle", "opm"),
+                    "triangle-oracle": ("attention",),
+                    "oracle": ()}
+
+
+def _fused(cfg, plan: str) -> dict[str, bool]:
+    """Which Evoformer sites take their fused kernel on the card under
+    ``plan`` at the config's widths."""
+    evo = cfg.evoformer
+    fits = {"attention": evo.head_dim in (16, 32),
+            "triangle": (evo.tri_mult_dim in (32, 128)
+                         and evo.d_pair in (32, 128)),
+            "opm": evo.opm_dim in (16, 32) and evo.d_pair in (32, 128)}
+    return {site: site in PLAN_FUSED_SITES[plan] and fit
+            for site, fit in fits.items()}
+
+
+# Fixed facts of FULL (48 blocks, 3 recycles), held beside the counts that
+# expected_launches derives: per request of each serving plan and per
+# training step under attention-oracle.
+FULL_FACTS = {
+    ("serve", "default"): {
+        "layer_norm": 2000, "bias_sigmoid_mul": 768,
+        "flash_attention_fwd": 768, "triangle_mult": 384,
+        "outer_product_mean": 192, "fused_softmax": 0},
+    ("serve", "attention-oracle"): {
+        "layer_norm": 2000, "bias_sigmoid_mul": 768,
+        "flash_attention_fwd": 0, "triangle_mult": 384,
+        "outer_product_mean": 192, "fused_softmax": 768},
+    ("train", "attention-oracle"): {
+        "fused_softmax": 960, "flash_attention_fwd": 0,
+        "flash_attention_bwd": 0},
+}
+
+
+def check_facts(what: str, plan: str, counts: dict) -> None:
+    facts = FULL_FACTS.get((what, plan), {})
+    off = {k: (counts[k], n) for k, n in facts.items() if counts[k] != n}
+    if off:
+        fail(f"{what} {plan}: launches (got, fixed) {off}")
+
+
+def expected_launches(cfg, passes: int, plan: str = "default") -> dict[str, int]:
+    """Launches per forward from the config and the plan: per Evoformer
+    block 10 LayerNorms and 4 attention gates; per attention site the flash
+    attention, or the fused softmax where the site is materialized; per
+    triangle update the fused triangle kernel, or, materialized, its output
+    LayerNorm and gate; per OPM the fused OPM kernel (materialized: none);
+    per pass 2 LayerNorms in recycling and 2 + 2 per iteration in the
+    structure module. The oracle plan launches nothing."""
+    if plan == "oracle":
+        return dict.fromkeys(TOL, 0)
     nb, ni = cfg.evoformer.n_blocks, cfg.structure.n_iterations
-    return {"layer_norm": passes * (10 * nb + 2 + 2 + 2 * ni),
-            "bias_sigmoid_mul": passes * 4 * nb,
-            "flash_attention_fwd": passes * 4 * nb,
-            "triangle_mult": passes * 2 * nb,
-            "outer_product_mean": passes * nb,
-            "flash_attention_bwd": 0, "bias_dropout_add": 0}
+    f = _fused(cfg, plan)
+    tri_ln = 0 if f["triangle"] else 2
+    return {"layer_norm": passes * ((10 + tri_ln) * nb + 2 + 2 + 2 * ni),
+            "bias_sigmoid_mul": passes * (4 + tri_ln) * nb,
+            "flash_attention_fwd": passes * 4 * nb * f["attention"],
+            "triangle_mult": passes * 2 * nb * f["triangle"],
+            "outer_product_mean": passes * nb * f["opm"],
+            "flash_attention_bwd": 0, "bias_dropout_add": 0,
+            "fused_softmax": passes * 4 * nb * (not f["attention"])}
 
 
-def expected_train_launches(cfg) -> dict[str, int]:
+def expected_train_launches(cfg, plan: str = "default") -> dict[str, int]:
     """Launches per training step from the config: n_recycle no-grad passes
     and the grad pass, each a forward (with the 6 dropout residual adds of a
     block on K3); then the backward recomputes every Evoformer block (its
     kernels run once more, the structure module's do not) and runs one
-    attention backward per attention of the grad pass."""
+    attention backward per fused attention of the grad pass."""
     passes = cfg.n_recycle + 1
     nb = cfg.evoformer.n_blocks
-    fwd = expected_launches(cfg, passes)
+    fwd = expected_launches(cfg, passes, plan)
     block = expected_launches(
         dataclasses.replace(cfg, structure=dataclasses.replace(
-            cfg.structure, n_iterations=0)), 1)
+            cfg.structure, n_iterations=0)), 1, plan)
     block["layer_norm"] -= 4          # recycling and structure LNs
     out = {k: fwd[k] + block[k] for k in fwd}
     out["bias_dropout_add"] = (passes + 1) * 6 * nb
-    out["flash_attention_bwd"] = 4 * nb
+    out["flash_attention_bwd"] = 4 * nb * _fused(cfg, plan)["attention"]
     return out
 
 
@@ -796,13 +1017,18 @@ def init_phase(torch):
     return tree, batches
 
 
-def serve_phase(torch, tree, batches):
+def serve_phase(torch, tree, batches, plan: str = "default",
+                baseline: dict | None = None):
+    """``FastFold(FULL, plan=...)`` serving the requests after a warm-up
+    pass per shape, the launch counts set to 0 just before the counted
+    requests and read just after. ``baseline``: the default plan's
+    latencies, printed beside this plan's."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.kernels import _build
     from repro_torch.weights import params_from_numpy
 
-    ff = FastFold(FULL)
+    ff = FastFold(FULL, plan=plan_of(plan))
     params = params_from_numpy(tree, device="cuda")
     # Warm-up, outside the timed and counted run: one pass (n_recycle = 0)
     # at each request shape grows the allocator's pools and loads cuBLAS.
@@ -814,9 +1040,9 @@ def serve_phase(torch, tree, batches):
             ff.forward(params, batch, n_recycle=0)
             torch.cuda.synchronize()
             warm[key] = time.perf_counter() - t0
-    emit({"phase": "warmup", "n_recycle": 0, "seconds": warm})
+    emit({"phase": "warmup", "plan": plan, "n_recycle": 0, "seconds": warm})
 
-    per_request = expected_launches(FULL, FULL.n_recycle + 1)
+    per_request = expected_launches(FULL, FULL.n_recycle + 1, plan)
     latencies = {}
     torch.cuda.synchronize()
     _build.reset_launches()                      # the main path starts here
@@ -834,39 +1060,105 @@ def serve_phase(torch, tree, batches):
         finite = all(bool(torch.isfinite(out[k].float()).all())
                      for k in shapes)
         shapes_ok = all(tuple(out[k].shape) == v for k, v in shapes.items())
-        emit({"phase": "serve", "request": name, "n_res": r, "n_seq": s,
-              "n_real": kw.get("n_real", r), "n_recycle": FULL.n_recycle,
-              "n_blocks": FULL.evoformer.n_blocks, "latency_s": latencies[name],
-              "launches": counts, "expected_launches": per_request,
-              "finite": finite, "shapes_ok": shapes_ok,
-              "max_abs_coords": out["coords"].abs().max().item()})
+        row = {"phase": "serve", "plan": plan, "request": name, "n_res": r,
+               "n_seq": s, "n_real": kw.get("n_real", r),
+               "n_recycle": FULL.n_recycle,
+               "n_blocks": FULL.evoformer.n_blocks,
+               "latency_s": latencies[name]}
+        if baseline is not None:
+            row["default_plan_latency_s"] = baseline[name]
+        row.update({"launches": counts, "expected_launches": per_request,
+                    "finite": finite, "shapes_ok": shapes_ok,
+                    "max_abs_coords": out["coords"].abs().max().item()})
+        emit(row)
         if not (finite and shapes_ok):
-            fail(f"serve {name}: outputs not finite or misshapen")
+            fail(f"serve {plan} {name}: outputs not finite or misshapen")
         if counts != per_request:
-            fail(f"serve {name}: launches {counts} != expected {per_request}")
+            fail(f"serve {plan} {name}: launches {counts} != expected "
+                 f"{per_request}")
+        check_facts("serve", plan, counts)
     main_launches = {k: _build.LAUNCHES[k] for k in per_request}
     if any(main_launches[k] == 0 for k in per_request if per_request[k]):
-        fail(f"a kernel of the main path never launched: {main_launches}")
+        fail(f"a kernel of the {plan} serving path never launched: "
+             f"{main_launches}")
     del params
     return main_launches, latencies
 
 
-def train_phase(torch):
+def smoke_phase(torch):
+    """One ``FastFold(SMOKE)`` request on the card under the default plan,
+    every weight randomised: its head dim (8) and triangle and OPM widths
+    (16, 8) lie outside those kernels, so each site takes its materialized
+    branch. Outputs finite, the launch counts the config gives (the fused
+    softmax, no flash attention, triangle or OPM kernel), and the fp32
+    output within E2E_TOL of the CPU's."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.data import protein_batches
+    from repro_torch.exec import FastFold
+    from repro_torch.kernels import _build
+    from repro_torch.weights import (params_from_numpy, params_to_numpy,
+                                     randomize_tree)
+
+    tree = randomize_tree(params_to_numpy(
+        FastFold(SMOKE, device="cpu").init(seed=SEED)), SEED + 7)
+    batch = next(protein_batches(batch=1, n_seq=16, n_res=40, n_real=33,
+                                 seed=SEED + 8)).as_dict()
+    ff = FastFold(SMOKE, plan=plan_of("default"))
+    params = params_from_numpy(tree)
+    ff.forward(params, batch)                     # warm-up, not counted
+    per_request = expected_launches(SMOKE, SMOKE.n_recycle + 1)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (out,) = ff.serve(params, [batch])
+    torch.cuda.synchronize()
+    counts = {k: _build.LAUNCHES[k] for k in per_request}
+    finite = all(bool(torch.isfinite(out[k].float()).all())
+                 for k in ("coords", "msa_logits", "distogram_logits"))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        f32 = FastFold(SMOKE, device=dev, dtype=torch.float32,
+                       plan=plan_of("default"))
+        outs[dev] = f32.forward(params_from_numpy(tree, device=dev), batch)
+    diffs = {}
+    for k in ("coords", "distogram_logits", "msa_logits"):
+        got, want = outs["cuda"][k].cpu(), outs["cpu"][k]
+        if k == "coords":                # the real residues (see parity)
+            got, want = got[:, :33], want[:, :33]
+        diffs[k] = rel_err(got, want)[1]
+    row = {"phase": "smoke", "config": "SMOKE", "plan": "default",
+           "n_res": 40, "n_real": 33, "n_seq": 16, "launches": counts,
+           "expected_launches": per_request, "finite": finite,
+           "fp32_max_rel_diff_vs_cpu": diffs, "tol": E2E_TOL}
+    # SMOKE's widths lie outside the flash attention, triangle and OPM
+    # kernels: every site takes its materialized branch.
+    materialized = (counts["fused_softmax"] > 0
+                    and counts["flash_attention_fwd"] == 0
+                    and counts["triangle_mult"] == 0
+                    and counts["outer_product_mean"] == 0)
+    row["materialized"] = materialized
+    row["ok"] = (finite and counts == per_request and materialized
+                 and max(diffs.values()) <= E2E_TOL)
+    emit(row)
+    if not row["ok"]:
+        fail(f"SMOKE request on the card: {row}")
+
+
+def train_phase(torch, plan: str = "default", n_steps: int = 3):
     """The training entry point at the paper's initial training setting:
-    ``make_train_step(FastFold(FULL).loss_fn)`` on the port's own init, bf16,
-    remat per block, dropout from a seeded generator on the card. One
-    uncounted warm-up step, then two counted steps."""
+    ``make_train_step(FastFold(FULL, plan=...).loss_fn)`` on the port's own
+    init, bf16, remat per block, dropout from a seeded generator on the
+    card. One uncounted warm-up step, then ``n_steps - 1`` counted steps."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.kernels import _build
     from repro_torch.train import make_train_step
 
-    ff = FastFold(FULL)
+    ff = FastFold(FULL, plan=plan_of(plan))
     init, step = make_train_step(ff.loss_fn)
     state = init(ff.init(seed=SEED))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    batches = train_batches(3)
-    per_step = expected_train_launches(FULL)
+    batches = train_batches(n_steps)
+    per_step = expected_train_launches(FULL, plan)
 
     def run(batch):
         nonlocal state
@@ -880,15 +1172,20 @@ def train_phase(torch):
         ok = (all(map(lambda x: x == x and abs(x) != float("inf"),
                       (vals["loss"], vals["grad_norm"])))
               and vals["nonfinite_skips"] == 0.0)
-        row = {"phase": "train", "step": i, "counted": counts is not None,
-               "step_s": secs, **vals, "ok": ok}
+        row = {"phase": "train", "plan": plan, "step": i,
+               "counted": counts is not None, "step_s": secs, **vals,
+               "ok": ok}
         if counts is not None:
             row.update({"launches": counts, "expected_launches": per_step})
         emit(row)
         if not ok:
-            fail(f"train step {i}: loss or grad norm not finite, or skipped")
+            fail(f"train {plan} step {i}: loss or grad norm not finite, or "
+                 "skipped")
         if counts is not None and counts != per_step:
-            fail(f"train step {i}: launches {counts} != expected {per_step}")
+            fail(f"train {plan} step {i}: launches {counts} != expected "
+                 f"{per_step}")
+        if counts is not None:
+            check_facts("train", plan, counts)
 
     secs, vals = run(batches[0])                  # warm-up, not counted
     checked(0, secs, vals)
@@ -904,8 +1201,12 @@ def train_phase(torch):
         times.append(secs)
         checked(i, secs, vals, counts)
     launches = {k: _build.LAUNCHES[k] for k in per_step}
+    if any(launches[k] == 0 for k in per_step if per_step[k]):
+        fail(f"a kernel of the {plan} training path never launched: "
+             f"{launches}")
     peak = torch.cuda.max_memory_allocated()
-    summary = {"phase": "train_summary", "n_res": TRAIN_SHAPE["n_res"],
+    summary = {"phase": "train_summary", "plan": plan,
+               "n_res": TRAIN_SHAPE["n_res"],
                "n_seq": TRAIN_SHAPE["n_seq"], "batch": 1, "dtype": "bfloat16",
                "n_blocks": FULL.evoformer.n_blocks,
                "n_recycle": FULL.n_recycle, "remat": True,
@@ -919,11 +1220,11 @@ def train_phase(torch):
     return launches, summary
 
 
-def train_parity_phase(torch, tree):
+def train_parity_phase(torch, tree, plan: str = "default"):
     """The kernel path against the plain path through the backward: the
     FULL-width model cut to 2 blocks and no recycling, fp32, no dropout,
     randomised weights, r = 128, s = 64; the gradient of every parameter
-    on the card and on the CPU."""
+    on the card and on the CPU, both under ``plan``."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.layers.params import tree_leaves, tree_map
@@ -935,7 +1236,7 @@ def train_parity_phase(torch, tree):
     batch = train_batches(1, n_res=128, n_seq=64)[0]
     grads, losses, secs = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        ff = FastFold(cfg, device=dev, dtype=torch.float32)
+        ff = FastFold(cfg, device=dev, dtype=torch.float32, plan=plan_of(plan))
         params = tree_map(lambda t: t.requires_grad_(True),
                           params_from_numpy(cut, device=dev))
         t0 = time.perf_counter()
@@ -950,7 +1251,7 @@ def train_parity_phase(torch, tree):
         if rel >= worst[1]:
             worst = (err, rel, i)
     names = _leaf_names(params)
-    row = {"phase": "train_parity_fp32",
+    row = {"phase": "train_parity_fp32", "plan": plan,
            "cut": {"n_blocks": n_blocks, "n_recycle": 0}, "width": "FULL",
            "n_res": 128, "n_seq": 64, "dropout": False, "tol": GRAD_TOL,
            "leaves": len(grads["cpu"]), "loss": losses,
@@ -962,8 +1263,8 @@ def train_parity_phase(torch, tree):
                torch.isfinite(g).all() for g in grads["cuda"])}
     emit(row)
     if not row["ok"]:
-        fail(f"fp32 gradients of the kernel path and the plain path disagree: "
-             f"{names[worst[2]]} {worst[1]:.3g} > {GRAD_TOL}")
+        fail(f"fp32 gradients of the kernel path and the plain path disagree "
+             f"under {plan}: {names[worst[2]]} {worst[1]:.3g} > {GRAD_TOL}")
 
 
 def _leaf_names(tree, prefix=""):
@@ -985,10 +1286,14 @@ def _leaves(tree):
         yield tree
 
 
-def parity_phase(torch, tree, batches):
+def parity_phase(torch, tree, batches, plans=PLAN_NAMES):
     """The kernel path against the plain path end to end: the same FULL-width
-    model and every served request in fp32, on the card and on the CPU. Only
-    the depth is cut (2 blocks, no recycling), to keep the CPU runs short."""
+    model and every served request in fp32, on the card under each of
+    ``plans`` and on the CPU. Only the depth is cut (2 blocks, no
+    recycling), to keep the CPU runs short. The default plan is held
+    against the CPU under the default plan; every other plan against the
+    CPU under oracle (every op on its plain version, every site
+    materialized), which is run once per request for all of them."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.weights import params_from_numpy
@@ -996,44 +1301,58 @@ def parity_phase(torch, tree, batches):
     n_blocks = 2
     cfg = _cut(FULL, n_blocks)
     cut = dict(tree, evoformer=_slice_tree(tree["evoformer"], n_blocks))
-    ffs = {dev: (FastFold(cfg, device=dev, dtype=torch.float32),
-                 params_from_numpy(cut, device=dev)) for dev in ("cuda", "cpu")}
+    params = {dev: params_from_numpy(cut, device=dev)
+              for dev in ("cuda", "cpu")}
+
+    def ff(dev, plan):
+        return FastFold(cfg, device=dev, dtype=torch.float32,
+                        plan=plan_of(plan))
+
+    cpu_plans = {p: "default" if p == "default" else "oracle" for p in plans}
     bad = []
     for (name, kw), batch in zip(REQUESTS, batches):
-        outs, secs = {}, {}
-        for dev, (ff, params) in ffs.items():
+        cpu, cpu_secs = {}, {}
+        for cp in dict.fromkeys(cpu_plans.values()):
             t0 = time.perf_counter()
-            outs[dev] = ff.forward(params, batch)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            secs[dev] = time.perf_counter() - t0
-        row = {"phase": "parity_fp32", "request": name,
-               "cut": {"n_blocks": n_blocks, "n_recycle": 0}, "width": "FULL",
-               "n_res": kw["n_res"], "n_seq": kw["n_seq"],
-               "n_real": kw.get("n_real", kw["n_res"]), "tol": E2E_TOL,
-               "seconds": secs}
-        ok, real = True, row["n_real"]
-        for k in ("coords", "distogram_logits", "msa_logits"):
-            got, want = outs["cuda"][k].cpu(), outs["cpu"][k]
-            if k == "coords" and real < row["n_res"]:
-                # The coordinates of padding residues are no part of the
-                # fold and are ill-conditioned in the model itself (the
-                # row's "cpu_sensitivity" measures it on the plain path
-                # alone): reported, not held.
-                row["coords_padding"] = dict(zip(
-                    ("max_abs_diff", "max_rel_diff"),
-                    rel_err(got[:, real:], want[:, real:])))
-                got, want = got[:, :real], want[:, :real]
-            err, rel = rel_err(got, want)
-            row[k] = {"max_abs_diff": err, "max_rel_diff": rel}
-            ok &= rel <= E2E_TOL
-        if real < row["n_res"]:
-            row["cpu_sensitivity"] = _sensitivity(*ffs["cpu"], batch,
-                                                  outs["cpu"], real)
-        row["ok"] = ok
-        emit(row)
-        if not ok:
-            bad.append(name)
+            cpu[cp] = ff("cpu", cp).forward(params["cpu"], batch)
+            cpu_secs[cp] = time.perf_counter() - t0
+        for plan in plans:
+            t0 = time.perf_counter()
+            got_out = ff("cuda", plan).forward(params["cuda"], batch)
+            torch.cuda.synchronize()
+            secs = {"cuda": time.perf_counter() - t0,
+                    "cpu": cpu_secs[cpu_plans[plan]]}
+            want_out = cpu[cpu_plans[plan]]
+            row = {"phase": "parity_fp32", "plan": plan,
+                   "cpu_plan": cpu_plans[plan], "request": name,
+                   "cut": {"n_blocks": n_blocks, "n_recycle": 0},
+                   "width": "FULL", "n_res": kw["n_res"],
+                   "n_seq": kw["n_seq"],
+                   "n_real": kw.get("n_real", kw["n_res"]), "tol": E2E_TOL,
+                   "seconds": secs}
+            ok, real = True, row["n_real"]
+            for k in ("coords", "distogram_logits", "msa_logits"):
+                got, want = got_out[k].cpu(), want_out[k]
+                if k == "coords" and real < row["n_res"]:
+                    # The coordinates of padding residues are no part of the
+                    # fold and are ill-conditioned in the model itself (the
+                    # row's "cpu_sensitivity" measures it on the plain path
+                    # alone): reported, not held.
+                    row["coords_padding"] = dict(zip(
+                        ("max_abs_diff", "max_rel_diff"),
+                        rel_err(got[:, real:], want[:, real:])))
+                    got, want = got[:, :real], want[:, :real]
+                err, rel = rel_err(got, want)
+                row[k] = {"max_abs_diff": err, "max_rel_diff": rel}
+                ok &= rel <= E2E_TOL
+            if real < row["n_res"] and plan == "default":
+                row["cpu_sensitivity"] = _sensitivity(
+                    ff("cpu", "default"), params["cpu"], batch,
+                    cpu["default"], real)
+            row["ok"] = ok
+            emit(row)
+            if not ok:
+                bad.append(f"{name} {plan}")
     if bad:
         fail(f"fp32 kernel path and plain path disagree end to end: {bad}")
 
@@ -1105,27 +1424,32 @@ def main() -> int:
             "tol": TOL[k]} for k in TOL}})
 
     del timer
-    serve_launches, latencies = serve_phase(torch, tree, batches)
+    launches = {}
+    launches["serve"], latencies = serve_phase(torch, tree, batches)
+    launches["serve attention-oracle"], _ = serve_phase(
+        torch, tree, batches, "attention-oracle", baseline=latencies)
+    smoke_phase(torch)
     parity_phase(torch, tree, batches)
-    train_launches, _ = train_phase(torch)
-    train_parity_phase(torch, tree)
+    launches["train"], _ = train_phase(torch)
+    launches["train attention-oracle"], _ = train_phase(
+        torch, "attention-oracle", n_steps=2)
+    for plan in ("default", "attention-oracle"):
+        train_parity_phase(torch, tree, plan)
 
     # One line for every ported kernel, at its heaviest main-path shape;
-    # its launches are those of its own path: serving for the inference
-    # kernels, the training step for the two that only training runs.
+    # its launches are those of its own path (KERNEL_PATHS), and it lists
+    # those of every path.
     kernels = []
     for k, (src, replaces) in SOURCES.items():
         timed = [r for r in checks if r["kernel"] == k and "ms" in r]
         top = max(timed, key=lambda r: r["bound_ms"])
-        path = "train" if k in TRAIN_KERNELS else "serve"
-        launches = train_launches if k in TRAIN_KERNELS else serve_launches
-        if launches[k] == 0:
+        path = KERNEL_PATHS.get(k, "serve")
+        if launches[path][k] == 0:
             fail(f"{k} never launched on its path ({path})")
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k], "launches_path": path,
-            "launches_serve": serve_launches[k],
-            "launches_train": train_launches[k],
+            "launches": launches[path][k], "launches_path": path,
+            "launches_by_path": {p: n[k] for p, n in launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in checks
                                if r["kernel"] == k),
             "tol": TOL[k],

@@ -4,6 +4,12 @@ on the GPU (PyTorch port).
 
     PYTHONPATH=src python scripts/torch_profile_serve.py [--n-res 256 384] [--n-seq 128]
     PYTHONPATH=src python scripts/torch_profile_serve.py --train [--n-res 256]
+    PYTHONPATH=src python scripts/torch_profile_serve.py --plan attention-oracle
+
+``--plan`` names the ExecutionPlan the model runs under: a preset
+(default, oracle, interpret, triangle-oracle) or ``attention-oracle``,
+``KernelPolicy(attention="oracle")``, whose four attention sites
+materialize their scores and run the fused softmax kernel.
 
 For each residue count, serves one request through ``FastFold(FULL)`` (48
 blocks, n_recycle = 3, every weight randomised from a seed): once after a
@@ -47,7 +53,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import FULL
 from repro_torch.data import protein_batches
-from repro_torch.exec import FastFold
+from repro_torch.exec import ExecutionPlan, FastFold, KernelPolicy, PRESETS
 from repro_torch.kernels import _build
 from repro_torch.layers.params import tree_leaves, tree_map
 from repro_torch.train import make_train_step
@@ -57,6 +63,7 @@ from repro_torch.weights import (params_from_numpy, params_to_numpy,
 PORT_KERNELS = ("layer_norm_kernel", "bias_sigmoid_mul_kernel",
                 "flash_fwd_kernel", "triangle_mult_mma_kernel",
                 "outer_product_mean_mma_kernel", "bias_dropout_add_kernel",
+                "softmax_warp_kernel", "softmax_block_kernel",
                 # the flash-attention backward's passes
                 "delta_kernel", "dq_kernel", "dkv_kernel", "dbias_kernel",
                 "dmask_reduce_kernel")
@@ -174,6 +181,10 @@ def train_runner(ff, params, batch, seed):
                       **parts}
 
 
+PLANS = {**PRESETS, "attention-oracle": ExecutionPlan(
+    kernels=KernelPolicy(attention="oracle"))}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-res", type=int, nargs="+", default=[256])
@@ -182,11 +193,13 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of a request")
+    ap.add_argument("--plan", choices=sorted(PLANS), default="default",
+                    help="the ExecutionPlan the model runs under")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_serve: needs a CUDA device")
     _build.build_all()
-    ff = FastFold(FULL)
+    ff = FastFold(FULL, plan=PLANS[args.plan])
     if args.train:
         params = ff.init(seed=args.seed)
     else:
@@ -212,7 +225,7 @@ def main() -> None:
         if total_ms == 0:
             raise SystemExit("torch_profile_serve: the profiler recorded no "
                              "device time")
-        head = {"n_res": n_res, "n_seq": args.n_seq}
+        head = {"n_res": n_res, "n_seq": args.n_seq, "plan": args.plan}
         print(json.dumps({
             "device": smi, **head, "n_blocks": FULL.evoformer.n_blocks,
             "n_recycle": FULL.n_recycle, "latency_s": latency, **extra,

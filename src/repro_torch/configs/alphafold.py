@@ -3,7 +3,8 @@
 Own copies of the reference's ``EvoformerConfig`` / ``StructureConfig`` /
 ``AlphaFoldConfig`` with the fields inference and training read; ``compute_dtype`` is a
 torch dtype. The chunking knobs of the reference (AutoChunk) are not part of
-this port yet: they change memory, not numbers.
+this port yet: they change memory, not numbers. ``opm_chunk`` is the one
+knob the port reads: the j block of the materialized outer-product-mean.
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ class EvoformerConfig:
     dropout_msa: float = 0.15
     dropout_pair: float = 0.25
     n_blocks: int = 48
+    # OPM j-chunking of the materialized branch: the (B, r, r, c, c) outer
+    # product is formed in j blocks of this size (0 = the whole row).
+    opm_chunk: int = 0
 
 
 @dataclass(frozen=True)

@@ -4,9 +4,13 @@ loss.
 
 Left out of this port for now: AutoChunk (the reference's
 ``resolve_evoformer_config``), whose knobs change memory and not numbers.
-The recycling loop is a Python loop.
+The current plan's ``MemoryPolicy.opm_chunk`` overrides the config's, as in
+the reference; a plan asking for anything else the port does not serve
+raises. The recycling loop is a Python loop.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +21,7 @@ from repro_torch.core.evoformer import (DROPOUT_SITES, evoformer_stack,
 from repro_torch.core.losses import alphafold_loss
 from repro_torch.core.structure import init_structure_module, structure_module
 from repro_torch.data.synthetic import N_AA, N_MSA_TOK
+from repro_torch.exec.plan import check_port_supports, current_plan
 from repro_torch.layers.norms import init_layer_norm, layer_norm
 from repro_torch.layers.params import Params, dense, init_dense
 
@@ -134,6 +139,11 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
     in the last pass only; every pass applies the same dropout masks
     ``keeps`` (the reference hands one rng to all of them), and ``remat``
     checkpoints each Evoformer block of the last pass."""
+    plan = current_plan()
+    check_port_supports(plan)
+    if plan.memory.opm_chunk:
+        cfg = dataclasses.replace(cfg, evoformer=dataclasses.replace(
+            cfg.evoformer, opm_chunk=plan.memory.opm_chunk))
     if n_recycle is None:
         n_recycle = cfg.n_recycle
     b, s, r = batch["msa"].shape

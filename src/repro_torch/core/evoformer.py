@@ -2,24 +2,37 @@
 
 The port of the reference's ``evoformer_block`` / ``evoformer_stack`` with
 single-device semantics: collectives are the identity, ``transpose_pair`` is
-an axis swap, and the async overlap window is the identity. The four
-attention sites (MSA row with pair bias, MSA column, triangle start and end
-with pair bias) go through ``ops.fused_attention`` — the flash-attention
-kernels on the card. Every LayerNorm goes through the LayerNorm kernel and
-every attention output gate through the gating kernel. Both triangular
-multiplicative updates and the outer-product-mean take the reference's
-default (fused) branch: ``ops.fused_triangle_mult`` and
-``ops.fused_outer_product_mean``, the fused triangle and OPM kernels on the
-card, so neither the (B, r, r, c) triangle product nor the (B, r, r, c, c)
-outer product is ever a whole tensor.
+an axis swap, and the async overlap window is the identity. Every LayerNorm
+goes through the LayerNorm kernel and every attention output gate through
+the gating kernel.
+
+Each of the three kernel sites takes one of two branches, chosen as the
+reference chooses them, by the current ``ExecutionPlan`` (``exec/plan.py``)
+through ``ops.fused_*_supported``:
+- attention (MSA row with pair bias, MSA column, triangle start and end with
+  pair bias): the fused branch ``ops.fused_attention`` (the flash-attention
+  kernels on the card), or the scores-materialized branch: the
+  (B, G, H, S, S) scores as one product, ``ops.fused_softmax`` (the fused
+  softmax kernel on the card), the context as a second product;
+- the two triangular multiplicative updates: ``ops.fused_triangle_mult``
+  (the fused triangle kernel), or the materialized branch: the gated a and
+  b, the (B, r, r, c) product, the output LayerNorm, the projection and the
+  gating kernel;
+- the outer-product-mean: ``ops.fused_outer_product_mean`` (the fused OPM
+  kernel), or the materialized (B, r, r, c, c) outer product, whole or in j
+  blocks of ``cfg.opm_chunk``.
+The default plan takes the fused branches where the kernels take the widths
+(MINI and FULL); ``KernelPolicy(attention="oracle")``,
+``preset("triangle-oracle")`` and ``preset("oracle")`` select the
+materialized ones, and so does a width outside a kernel's envelope.
 
 Training: the six residual adds that the reference drops out go through
 ``ops.bias_dropout_add`` with their keep masks (drawn by the caller, see
 ``core.alphafold.draw_dropout_keeps``, at the reduced shape of the
 reference's shared axis), and ``evoformer_stack(remat=True)`` recomputes each
 block in the backward (``torch.utils.checkpoint``, the reference's
-``nothing_saveable`` policy). Masks are never drawn inside a checkpointed
-block, so the recompute sees the same ones.
+``nothing_saveable`` policy) under the plan the forward ran under. Masks are
+never drawn inside a checkpointed block, so the recompute sees the same ones.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.alphafold import EvoformerConfig
+from repro_torch.exec.plan import current_plan, use_plan
 from repro_torch.kernels import ops
 from repro_torch.layers.attention import (AttnDims, init_attention,
                                           output_proj, project_qkv)
@@ -128,11 +142,19 @@ def _gated_attention(p_attn: Params, x_n: torch.Tensor,
                      bias: torch.Tensor | None, key_mask: torch.Tensor,
                      dims: AttnDims) -> torch.Tensor:
     """Group attention, 5D. x_n (B, G, S, d); bias (B, H, S, S) shared
-    across G, or None; key_mask (B, G, S) in {0, 1}."""
+    across G, or None; key_mask (B, G, S) in {0, 1}. The fused branch where
+    the plan and the kernel's envelope allow it, else the
+    scores-materialized branch."""
     q, k, v = project_qkv(p_attn, x_n, dims, compute_dtype=x_n.dtype)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     mask = torch.where(key_mask > 0, 0.0, NEG_INF).to(torch.float32)
-    ctx = ops.fused_attention(q, k, v, bias=bias, mask=mask, scale=scale)
+    if ops.fused_attention_supported(q.shape, kv_len=k.shape[2],
+                                     dtype=q.dtype, device=q.device):
+        ctx = ops.fused_attention(q, k, v, bias=bias, mask=mask, scale=scale)
+    else:
+        scores = torch.einsum("bgihd,bgjhd->bghij", q, k)
+        probs = ops.fused_softmax(scores, bias=bias, mask=mask, scale=scale)
+        ctx = torch.einsum("bghij,bgjhd->bgihd", probs, v)
     return output_proj(p_attn, ctx, x_for_gate=x_n)
 
 
@@ -167,25 +189,53 @@ def msa_transition(p, msa):
 
 def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig):
     """msa (B, s, r, Hm) -> pair update (B, r, r, Hz): the masked merged
-    projection, then the fused outer product, mask norm and c²→Hz
-    projection."""
+    projection, then the outer product, mask norm and c²→Hz projection,
+    fused where the plan and the kernel's envelope allow it, else
+    materialized (whole, or in j blocks of ``cfg.opm_chunk``)."""
+    c = cfg.opm_dim
     m_n = layer_norm(p["ln"], msa)
     ab = dense(p["proj"], m_n)                   # merged GEMM (B, s, r, 2c)
     a, bproj = torch.chunk(ab, 2, dim=-1)
     mask = msa_mask[..., None].to(a.dtype)
     a = a * mask
     bproj = bproj * mask
-    return ops.fused_outer_product_mean(a, bproj, msa_mask, msa_mask,
-                                        p["out"]["w"], p["out"]["b"])
+    if ops.fused_opm_supported(c, p["out"]["w"].shape[1], a.dtype, a.device):
+        return ops.fused_outer_product_mean(a, bproj, msa_mask, msa_mask,
+                                            p["out"]["w"], p["out"]["b"])
+
+    def opm_block(b_blk, mask_blk):
+        o = torch.einsum("bsic,bsjd->bijcd", a, b_blk)     # (B, r, jc, c, c)
+        norm = torch.einsum("bsi,bsj->bij", msa_mask, mask_blk)
+        o = (o.float() / (norm[..., None, None] + 1e-3)).to(a.dtype)
+        return dense(p["out"], o.reshape(o.shape[:3] + (c * c,)))
+
+    jc, r = cfg.opm_chunk, bproj.shape[2]
+    if not jc or r % jc != 0 or jc >= r:
+        return opm_block(bproj, msa_mask)
+    # j-chunked: the (B, r, jc, c*c) outer product one block at a time.
+    return torch.cat([opm_block(bproj[:, :, j:j + jc], msa_mask[:, :, j:j + jc])
+                      for j in range(0, r, jc)], dim=2)
 
 
 def triangle_mult_core(p, z_src, pair_mask):
     """The gated triangular multiplicative update in ``z_src`` coords
-    (already LN'ed): the b half is gated and masked here, the a half's
-    gating, the k-product, the output LN, projection and gate run fused."""
+    (already LN'ed). Fused branch: the b half is gated and masked here, the
+    a half's gating, the k-product, the output LN, projection and gate run
+    in one op. Materialized branch (by the plan, or a width outside the
+    kernel's envelope): the gated a and b, the (B, r, r, c) product, the
+    output LN, the projection and the gate, one after another."""
     ab = dense(p["proj"], z_src)                 # (B, r, k, 2c) merged
     g = dense(p["gate"], z_src)
     g_lin = z_src @ p["gate_out"]["w"].to(z_src.dtype)
+    if not ops.fused_triangle_supported(ab.shape[-1] // 2,
+                                        p["out"]["w"].shape[1], ab.dtype,
+                                        ab.device):
+        ab = ab * torch.sigmoid(g.float()).to(ab.dtype)
+        ab = ab * pair_mask[..., None].to(ab.dtype)
+        a, bm = torch.chunk(ab, 2, dim=-1)
+        o = torch.einsum("bikc,bjkc->bijc", a, bm)          # (B, r, r, c)
+        upd = dense(p["out"], layer_norm(p["ln_out"], o))
+        return ops.bias_sigmoid_mul(g_lin, p["gate_out"]["b"], upd)
     a_lin, b_lin = torch.chunk(ab, 2, dim=-1)
     ga, gb = torch.chunk(g, 2, dim=-1)
     bm = (b_lin.float() * torch.sigmoid(gb.float())).to(ab.dtype)
@@ -266,13 +316,21 @@ def evoformer_stack(params: list[Params], msa: torch.Tensor,
     built, each block keeps only its inputs and runs again in the backward
     (activation checkpointing per block, the reference's ``remat=True``
     with ``nothing_saveable``); the recompute runs the whole block, so it
-    launches every kernel of the block a second time."""
+    launches every kernel of the block a second time. It runs under the plan
+    the forward ran under, which the backward's thread does not see unless
+    the block re-enters it, so it takes the forward's branches."""
+    plan = current_plan()
+
+    def block_under_plan(*args, **kw):
+        with use_plan(plan):
+            return evoformer_block(*args, **kw)
+
     for i, p in enumerate(params):
         kb = keeps[i] if keeps is not None else None
         if remat and torch.is_grad_enabled():
             with set_checkpoint_early_stop(False):
                 msa, pair = checkpoint(
-                    evoformer_block, p, msa, pair, msa_mask, seq_mask,
+                    block_under_plan, p, msa, pair, msa_mask, seq_mask,
                     pair_mask, cfg=cfg, keeps=kb, use_reentrant=False)
         else:
             msa, pair = evoformer_block(p, msa, pair, msa_mask, seq_mask,

@@ -2,8 +2,10 @@
 
 The port's own numpy copy of the reference generator (``protein_batches``):
 for a seed it yields byte-identical arrays. ``n_real`` pads a shorter
-protein: residues from ``n_real`` on are padding, with ``seq_mask`` and
-``msa_mask`` zeroed there.
+protein: residues from ``n_real`` on are padding, with ``seq_mask``,
+``msa_mask`` and ``bert_mask`` zeroed there (so no loss lands on padding);
+the random draws are the same as unpadded, so every array but those three
+masks is byte-identical to the reference generator's for the seed.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ def protein_batches(
         if n_real is not None:
             msa_mask[..., n_real:] = 0.0
             seq_mask[..., n_real:] = 0.0
+            bert_mask[..., n_real:] = 0.0
         yield ProteinBatch(
             msa=masked_msa,
             msa_mask=msa_mask,

@@ -1,20 +1,30 @@
 """FastFold facade for folding inference and training: bind a config, a
-device and a compute dtype once.
+device, a compute dtype and an ``ExecutionPlan`` once.
 
     from repro_torch.configs import FULL
-    from repro_torch.exec import FastFold
+    from repro_torch.exec import (ExecutionPlan, FastFold, KernelPolicy,
+                                  preset)
     from repro_torch.train import make_train_step
 
-    ff = FastFold(FULL)                         # on the card
+    ff = FastFold(FULL)                         # on the card, current plan
     params = ff.init(seed=0)
     out = ff.forward(params, batch)             # batch: dict of arrays
-    outs = ff.serve(params, [batch_a, batch_b])
+    outs = ff.serve(params, [batch_a, batch_b], plans=[None, preset("oracle")])
     loss, metrics = ff.train_loss(params, batch, generator=gen)
     init_state, step = make_train_step(ff.loss_fn)
     state, metrics = step(init_state(params), batch, gen)
 
+    oracle_attn = FastFold(FULL, plan=ExecutionPlan(
+        kernels=KernelPolicy(attention="oracle")))   # scores materialized
+
 ``device=None`` means the card and raises where there is none;
-``device="cpu"`` runs every kernel's plain PyTorch version.
+``device="cpu"`` runs every kernel's plain PyTorch version. ``plan=None``
+binds the plan current when the facade is built (the innermost
+``use_plan`` scope, else the environment's ``REPRO_PLAN``). Every entry
+point runs under its plan (``use_plan``), a per-call ``plan=`` overriding
+the bound one; a plan asking for what the port does not serve yet raises
+(``exec.plan.check_port_supports``, at construction and in every
+forward).
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ import torch
 from repro_torch.configs.alphafold import AlphaFoldConfig
 from repro_torch.core.alphafold import (alphafold_forward,
                                         alphafold_train_loss, init_alphafold)
+from repro_torch.device import resolve_device
+from repro_torch.exec.plan import (ExecutionPlan, check_port_supports,
+                                   current_plan, use_plan)
 from repro_torch.layers.params import tree_map
 
 # The features the forward reads, and those the training loss adds.
@@ -33,29 +46,19 @@ FEATURES = ("msa", "msa_mask", "residue_index", "aatype", "seq_mask")
 TRAIN_FEATURES = ("pseudo_beta", "bert_mask", "true_msa")
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Without one, raise rather than run quietly on
-    the CPU; ``device="cpu"`` is the explicit opt-in the tests use."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "versions of the kernels on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 class FastFold:
-    """AlphaFold inference and training bound to one device and compute
-    dtype."""
+    """AlphaFold inference and training bound to one device, compute dtype
+    and ExecutionPlan (overridable per call)."""
 
     def __init__(self, config: AlphaFoldConfig, *, device=None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 plan: ExecutionPlan | None = None):
         if dtype is not None:
             config = dataclasses.replace(config, compute_dtype=dtype)
         self.config = config
         self.device = resolve_device(device)
+        self.plan = plan if plan is not None else current_plan()
+        check_port_supports(self.plan)
 
     def init(self, seed: int = 0):
         """Fresh parameters from a seeded CPU generator, on the device."""
@@ -70,23 +73,40 @@ class FastFold:
                 for k in FEATURES + TRAIN_FEATURES
                 if k in FEATURES or k in batch}
 
-    def forward(self, params, batch: Mapping, *, n_recycle: int | None = None):
-        """Full folding forward (recycling included)."""
-        return alphafold_forward(params, self.batch_to_device(batch),
-                                 self.config, n_recycle=n_recycle)
+    def forward(self, params, batch: Mapping, *, n_recycle: int | None = None,
+                plan: ExecutionPlan | None = None):
+        """Full folding forward (recycling included) under the bound plan or
+        ``plan``."""
+        with use_plan(self.plan if plan is None else plan):
+            return alphafold_forward(params, self.batch_to_device(batch),
+                                     self.config, n_recycle=n_recycle)
 
-    def serve(self, params, batches: Iterable[Mapping]):
-        """Folding-inference service entry: one forward per request."""
-        return [self.forward(params, b) for b in batches]
+    def serve(self, params, batches: Iterable[Mapping], *, plans=None):
+        """Folding-inference service entry: one forward per request.
+        ``plans`` (optional, one per request, None for the bound plan)
+        overrides the plan per request, e.g. an oracle canary beside
+        default-plan requests."""
+        batches = list(batches)
+        if plans is None:
+            plans = [None] * len(batches)
+        plans = list(plans)
+        if len(plans) != len(batches):
+            raise ValueError(
+                f"serve: {len(batches)} batches but {len(plans)} plans")
+        return [self.forward(params, b, plan=p) for b, p in zip(batches, plans)]
 
     def train_loss(self, params, batch: Mapping, generator=None, *,
-                   n_recycle: int | None = None):
+                   n_recycle: int | None = None,
+                   plan: ExecutionPlan | None = None):
         """``(loss, metrics)`` of one training forward, recycling included,
-        with activation checkpointing per Evoformer block. Dropout masks are
-        drawn from ``generator``; None means no dropout."""
-        return alphafold_train_loss(params, self.batch_to_device(batch),
-                                    self.config, generator=generator,
-                                    n_recycle=n_recycle)
+        with activation checkpointing per Evoformer block, under the bound
+        plan or ``plan``. Dropout masks are drawn from ``generator``; None
+        means no dropout. The backward that follows takes the forward's
+        legs and branches, wherever it runs."""
+        with use_plan(self.plan if plan is None else plan):
+            return alphafold_train_loss(params, self.batch_to_device(batch),
+                                        self.config, generator=generator,
+                                        n_recycle=n_recycle)
 
     @property
     def loss_fn(self):

@@ -82,6 +82,10 @@ SIGNATURES = {
         _c_ll, _c_int, _c_int, _c_int,                # d0, d1, d2, C
         _c_ll, _c_ll, _c_ll, _c_ll,                   # keep strides (0,1,2,C)
         _c_float, _c_int, _c_int, _c_void_p]),        # 1-rate, dtype, keep dtype, stream
+    "fused_softmax": ("fused_softmax_fwd", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, bias, mask (or NULL), out
+        _c_ll, _c_ll, _c_int, _c_int,                 # rows, H*R, rep, C
+        _c_float, _c_int, _c_int, _c_void_p]),        # scale, dtype, aligned, stream
 }
 
 # The kernels' dtype argument.

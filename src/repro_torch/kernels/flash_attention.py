@@ -18,6 +18,14 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32)        # the Evoformer's head dim in MINI and FULL
 
 
+def supported(n: int, h: int, d: int, skv: int) -> bool:
+    """Whether the forward and backward kernels take N rows of H heads of
+    head dim D over Skv keys: D in ``HEAD_DIMS``, N and H within the launch
+    grid, N and Skv not 0."""
+    return (d in HEAD_DIMS and 0 < n <= _build.MAX_GRID_YZ
+            and h <= _build.MAX_GRID_YZ and skv > 0)
+
+
 def _check_qkv(name: str, t: torch.Tensor, n: int, h: int, d: int):
     if t.ndim != 4 or t.shape[0] != n or t.shape[2] != h or t.shape[3] != d:
         raise ValueError(f"flash_attention_cuda: {name} {tuple(t.shape)} is not "

@@ -1,32 +1,90 @@
 """Public entry points of the kernels, shape-polymorphic like the reference's
 ``kernels/ops.py``.
 
-Routing is by the device of the tensors and nothing else: a CUDA tensor goes
-to the hand-written kernel, which launches or raises; a CPU tensor goes to
-the plain PyTorch version in ``ref``. There is no switch and no fallback from
-a kernel to its plain version.
+Routing: each op reads its family's leg from the current ``ExecutionPlan``
+(``exec/plan.py``; ``kernel_leg``) and the device of its tensors:
+
+    leg                                  CUDA tensor          CPU tensor
+    -----------------------------------  -------------------  ------------
+    auto (KernelPolicy.enabled=True)     the kernel, which    the plain
+                                         launches or raises   version
+    auto with enabled=False, oracle      the plain version    the plain version
+    xla (the reference's XLA legs        the plain version    the plain version
+      compute the same function)
+    pallas                               the kernel           raise: no kernel
+                                                              exists there
+    interpret (the card has no           the plain version    the plain version
+      interpret mode)
+    attn_bwd="scan"                      ref.attention_bwd_ref for the
+                                         attention backward, on either device
+
+``KernelPolicy.interpret=True`` leaves ``auto`` as it is: on the card it
+runs the kernel, as the reference's ``auto`` runs Pallas on its TPU. The
+plain versions are in ``ref``. There is no fallback from a kernel to its
+plain version: a CUDA tensor whose leg runs the kernel goes to it, and a
+shape the kernel refuses raises.
+
+The scores-materialized Evoformer paths ride the same legs through
+``fused_attention_supported``, ``fused_triangle_supported`` and
+``fused_opm_supported``. Under an ``oracle`` leg they are False. Otherwise
+they hold the shape to the reference's envelope, and where the op would run
+the kernel on the card also to the kernel's own (head dim, channel widths,
+grid): a shape outside it takes the materialized branch, which is the
+reference's own rule for out-of-envelope shapes.
 
 Each op is one ``torch.autograd.Function`` whose forward routes as above and
 saves what the reference's ``*_fwd`` saves, and whose backward is the
-reference's VJP in PyTorch (``_ln_bwd``, ``_bsm_bwd``, ``_bda_bwd``,
-``triangle_mult_bwd``, ``opm_bwd``). Attention's backward is the flash
-backward kernel on a CUDA tensor and ``ref.attention_bwd_ref`` on a CPU
-tensor. Where no graph is being built (``inference_mode``, ``no_grad``, or
-no input that needs a gradient) an op calls its forward directly, so
-inference does no autograd work.
+reference's VJP in PyTorch (``_ln_bwd``, ``_bsm_bwd``, ``_softmax_bwd``,
+``_bda_bwd``, ``triangle_mult_bwd``, ``opm_bwd``). Attention's backward is
+the flash backward kernel where the forward ran the kernel and the plan's
+``attn_bwd`` is ``auto``, else ``ref.attention_bwd_ref``. The leg is
+resolved once, when the op is called, and kept in the autograd context, so
+a backward that runs after the ``use_plan`` scope closed (or on autograd's
+device thread, which does not see the caller's scope) takes the forward's
+leg. Where no graph is being built (``inference_mode``, ``no_grad``, or no
+input that needs a gradient) an op calls its forward directly, so inference
+does no autograd work.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.exec.plan import current_plan
 from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import triangle as _tri
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
                                                    bias_sigmoid_mul_cuda)
+from repro_torch.kernels.fused_softmax import MAX_C as _MAX_SOFTMAX_C
+from repro_torch.kernels.fused_softmax import fused_softmax_cuda
 from repro_torch.kernels.layer_norm import layer_norm_cuda
 from repro_torch.kernels.triangle import (fused_opm_cuda, fused_triangle_cuda,
                                           opm_bwd, triangle_mult_bwd)
+
+# The reference's envelopes (src/repro/kernels/ops.py): attention head dim
+# and KV length, the triangle's channels, the OPM's channel.
+_REF_MAX_ATTN_D = 256
+_REF_MAX_ATTN_S = 16384
+_REF_MAX_TRI_C = 1024
+_REF_MAX_OPM_C = 64
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_leg(op: str) -> str:
+    """The current plan's leg for an op family: its explicit per-op leg,
+    else ``"oracle"`` under ``KernelPolicy(enabled=False)``, else
+    ``"auto"``. What a leg runs on each device is the table above."""
+    pol = current_plan().kernels
+    leg = getattr(pol, op)
+    if leg != "auto":
+        return leg
+    return "auto" if pol.enabled else "oracle"
+
+
+def _is_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -35,6 +93,18 @@ def _on_card(t: torch.Tensor, op: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{op}: tensors on {t.device} are not supported")
+
+
+def _runs_kernel(op: str, t: torch.Tensor) -> bool:
+    """Whether the op family's current leg runs its kernel on ``t``:
+    ``auto`` and ``pallas`` on a CUDA tensor do; ``pallas`` on a CPU
+    tensor raises."""
+    leg = kernel_leg(op)
+    on_card = _on_card(t, op)
+    if leg == "pallas" and not on_card:
+        raise ValueError(f"{op}: the 'pallas' leg runs the CUDA kernel, and "
+                         f"there is none for tensors on {t.device}")
+    return on_card and leg in ("auto", "pallas")
 
 
 def _builds_graph(*ts) -> bool:
@@ -51,8 +121,8 @@ def _lead_sum(t: torch.Tensor) -> torch.Tensor:
 # LayerNorm
 # ---------------------------------------------------------------------------
 
-def _ln_fwd(x, gamma, beta, eps):
-    if not _on_card(x, "layer_norm"):
+def _ln_fwd(x, gamma, beta, eps, kernel):
+    if not kernel:
         return ref.layer_norm_ref(x, gamma, beta, eps)
     return layer_norm_cuda(x.contiguous(), gamma.float().contiguous(),
                            beta.float().contiguous(), eps)
@@ -60,10 +130,10 @@ def _ln_fwd(x, gamma, beta, eps):
 
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
+    def forward(ctx, x, gamma, beta, eps, kernel):
         ctx.eps, ctx.beta_dtype = eps, beta.dtype
         ctx.save_for_backward(x, gamma)
-        return _ln_fwd(x, gamma, beta, eps)
+        return _ln_fwd(x, gamma, beta, eps, kernel)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,23 +149,24 @@ class _LayerNorm(torch.autograd.Function):
         dx = inv * (gg - gg.mean(dim=-1, keepdim=True)
                     - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
         return (dx.to(x.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(ctx.beta_dtype), None)
+                dbeta.to(ctx.beta_dtype), None, None)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis; any leading shape."""
+    kernel = _runs_kernel("layer_norm", x)
     if _builds_graph(x, gamma, beta):
-        return _LayerNorm.apply(x, gamma, beta, eps)
-    return _ln_fwd(x, gamma, beta, eps)
+        return _LayerNorm.apply(x, gamma, beta, eps, kernel)
+    return _ln_fwd(x, gamma, beta, eps, kernel)
 
 
 # ---------------------------------------------------------------------------
 # bias + sigmoid + mul (gating)
 # ---------------------------------------------------------------------------
 
-def _bsm_fwd(g, bg, v):
-    if not _on_card(v, "bias_sigmoid_mul"):
+def _bsm_fwd(g, bg, v, kernel):
+    if not kernel:
         return ref.bias_sigmoid_mul_ref(g, bg, v)
     return bias_sigmoid_mul_cuda(g.contiguous(), bg.float().contiguous(),
                                  v.contiguous())
@@ -103,9 +174,9 @@ def _bsm_fwd(g, bg, v):
 
 class _BiasSigmoidMul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g, bg, v):
+    def forward(ctx, g, bg, v, kernel):
         ctx.save_for_backward(g, bg, v)
-        return _bsm_fwd(g, bg, v)
+        return _bsm_fwd(g, bg, v, kernel)
 
     @staticmethod
     def backward(ctx, grad):
@@ -114,24 +185,136 @@ class _BiasSigmoidMul(torch.autograd.Function):
         s = torch.sigmoid(g.float() + bg.float())
         dv = (gradf * s).to(v.dtype)
         dg_f = gradf * v.float() * s * (1.0 - s)
-        return dg_f.to(g.dtype), _lead_sum(dg_f).to(bg.dtype), dv
+        return dg_f.to(g.dtype), _lead_sum(dg_f).to(bg.dtype), dv, None
 
 
 def bias_sigmoid_mul(g: torch.Tensor, bg: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """sigmoid(g + bg) * v; g and v share shape (..., C), bg is (C,)."""
+    kernel = _runs_kernel("elementwise", v)
     if _builds_graph(g, bg, v):
-        return _BiasSigmoidMul.apply(g, bg, v)
-    return _bsm_fwd(g, bg, v)
+        return _BiasSigmoidMul.apply(g, bg, v, kernel)
+    return _bsm_fwd(g, bg, v, kernel)
+
+
+# ---------------------------------------------------------------------------
+# fused softmax (the scores-materialized attention's softmax)
+# ---------------------------------------------------------------------------
+
+def _softmax_fwd(x, bias, mask, scale, kernel):
+    if not kernel:
+        return ref.softmax_ref(x, bias, mask, scale)
+    return fused_softmax_cuda(
+        x.contiguous(), bias.contiguous() if bias is not None else None,
+        mask.float().contiguous() if mask is not None else None, scale)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias, mask, scale, kernel):
+        y = _softmax_fwd(x, bias, mask, scale, kernel)
+        ctx.scale = scale
+        ctx.bias_meta = (bias.shape[0], bias.dtype) if bias is not None else None
+        ctx.mask_dtype = mask.dtype if mask is not None else None
+        # The reference saves the output only; the logits are not kept.
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        """The reference's ``_softmax_bwd``: dlogits = y·(g − Σ g·y) in fp32;
+        dx = dlogits·scale; dbias summed over the N/B rows that share a bias
+        row; dmask summed over H and R."""
+        (y,) = ctx.saved_tensors
+        yf, gf = y.float(), g.float()
+        dlogits = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
+        dx = (dlogits * ctx.scale).to(y.dtype)
+        dbias = dmask = None
+        if ctx.bias_meta is not None and ctx.needs_input_grad[1]:
+            b, dt = ctx.bias_meta
+            n = y.shape[0]
+            dbias = dlogits.reshape((b, n // b) + dlogits.shape[1:]).sum(dim=1)
+            dbias = dbias.to(dt)
+        if ctx.mask_dtype is not None and ctx.needs_input_grad[2]:
+            dmask = dlogits.sum(dim=(1, 2)).to(ctx.mask_dtype)
+        return dx, dbias, dmask, None, None
+
+
+def _softmax(x, bias, mask, scale, kernel):
+    if _builds_graph(x, bias, mask):
+        return _Softmax.apply(x, bias, mask, scale, kernel)
+    return _softmax_fwd(x, bias, mask, scale, kernel)
+
+
+def fused_softmax(x: torch.Tensor, bias: torch.Tensor | None = None,
+                  mask: torch.Tensor | None = None,
+                  scale: float = 1.0) -> torch.Tensor:
+    """softmax(scale*x + bias + mask) over the last axis, summed in fp32,
+    in x's dtype.
+
+    x: (..., H, R, C), the leading dims flattened into N for the kernel.
+    bias: (H, R, C) or (B, H, R, C), N % B == 0 (each bias batch element
+          shared by N/B consecutive rows), or None.
+    mask: additive, shape (..., C) matching x's leading dims, or None.
+
+    5D form (group attention, Evoformer): x (B, G, H, R, C) with bias
+    (B, H, R, C) shared across G and mask (B, G, C). Where the softmax leg
+    does not run the kernel, or C is past its envelope (16384), this form
+    computes without flattening (B, G), in plain PyTorch under autograd, as
+    the reference does; otherwise (B, G) flatten into N and the kernel runs
+    under the reference's VJP.
+    """
+    kernel = _runs_kernel("softmax", x) and x.shape[-1] <= _MAX_SOFTMAX_C
+    if x.ndim == 5 and not kernel:
+        acc = x.float() * scale
+        if bias is not None:
+            acc = acc + bias.float()[:, None]
+        if mask is not None:
+            acc = acc + mask.float()[:, :, None, None, :]
+        return torch.softmax(acc, dim=-1).to(x.dtype)
+    if x.ndim == 5:
+        b, grp, h, r, c = x.shape
+        xb = x.reshape(b * grp, h, r, c)
+        mb = mask.reshape(-1, c) if mask is not None else None
+        return _softmax(xb, bias, mb, scale, kernel).reshape(x.shape)
+    h, r, c = x.shape[-3:]
+    if bias is not None and bias.ndim == 3:
+        bias = bias[None]
+    xb = x.reshape(-1, h, r, c)
+    mb = mask.reshape(-1, c) if mask is not None else None
+    return _softmax(xb, bias, mb, scale, kernel).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
 # fused flash attention
 # ---------------------------------------------------------------------------
 
-def _attn_fwd(q, k, v, bias, mask, scale):
+def fused_attention_supported(q_shape, kv_len: int | None = None,
+                              dtype=None, device=None) -> bool:
+    """Whether the Evoformer takes the fused attention branch for this
+    query shape ((N, Sq, H, D) or (B, G, S, H, D)), KV length, dtype and
+    device under the current plan; False sends it to the
+    scores-materialized branch. ``device=None`` is taken as the CPU."""
+    leg = kernel_leg("attention")
+    if leg == "oracle":
+        return False
+    if dtype is not None and dtype not in _DTYPES:
+        return False
+    d = q_shape[-1]
+    skv = q_shape[-3] if kv_len is None else kv_len
+    if not (d <= _REF_MAX_ATTN_D and skv <= _REF_MAX_ATTN_S):
+        return False
+    if _is_cuda(device) and leg in ("auto", "pallas"):
+        n = 1
+        for s in q_shape[:-3]:
+            n *= s
+        return _fa.supported(n, q_shape[-2], d, skv)
+    return True
+
+
+def _attn_fwd(q, k, v, bias, mask, scale, kernel):
     """(out, lse) of the 4D form."""
-    if not _on_card(q, "fused_attention"):
+    if not kernel:
         return ref.attention_ref(q, k, v, bias, mask, scale)
     if bias is not None:
         bias = bias.contiguous()
@@ -142,9 +325,9 @@ def _attn_fwd(q, k, v, bias, mask, scale):
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, scale):
-        out, lse = _attn_fwd(q, k, v, bias, mask, scale)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, bias, mask, scale, kernel, bwd_kernel):
+        out, lse = _attn_fwd(q, k, v, bias, mask, scale, kernel)
+        ctx.scale, ctx.bwd_kernel = scale, bwd_kernel
         # Flash recompute residuals, as the reference saves them: never the
         # (N, H, Sq, Skv) probs.
         ctx.save_for_backward(q, k, v, bias, mask, out, lse)
@@ -154,7 +337,7 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, mask, out, lse = ctx.saved_tensors
         need_dmask = mask is not None and ctx.needs_input_grad[4]
-        if _on_card(q, "fused_attention"):
+        if ctx.bwd_kernel:
             bias_c = bias.contiguous() if bias is not None else None
             mask_c = mask.contiguous() if mask is not None else None
             dq, dk, dv, db, dm = flash_attention_bwd_cuda(
@@ -166,13 +349,16 @@ class _Attention(torch.autograd.Function):
         if db is not None:
             db = db.to(bias.dtype)
         dm = dm.to(mask.dtype) if need_dmask else None
-        return dq, dk, dv, db, dm, None
+        return dq, dk, dv, db, dm, None, None, None
 
 
 def _attention(q, k, v, bias, mask, scale):
+    kernel = _runs_kernel("attention", q)
     if _builds_graph(q, k, v, bias, mask):
-        return _Attention.apply(q, k, v, bias, mask, scale)
-    return _attn_fwd(q, k, v, bias, mask, scale)[0]
+        bwd_kernel = kernel and current_plan().kernels.attn_bwd != "scan"
+        return _Attention.apply(q, k, v, bias, mask, scale, kernel,
+                                bwd_kernel)
+    return _attn_fwd(q, k, v, bias, mask, scale, kernel)[0]
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -211,10 +397,43 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # fused triangle multiplicative update + outer-product-mean
 # ---------------------------------------------------------------------------
 
+def fused_triangle_supported(c: int, d: int, dtype=None, device=None) -> bool:
+    """Whether the Evoformer takes the fused triangle branch for channel
+    width ``c``, output width ``d``, dtype and device under the current
+    plan; False sends it to the materialized branch. ``device=None`` is
+    taken as the CPU."""
+    leg = kernel_leg("triangle")
+    if leg == "oracle":
+        return False
+    if dtype is not None and dtype not in _DTYPES:
+        return False
+    if not (c <= _REF_MAX_TRI_C and d <= _REF_MAX_TRI_C):
+        return False
+    if _is_cuda(device) and leg in ("auto", "pallas"):
+        return c in _tri.TRI_WIDTHS and d in _tri.TRI_WIDTHS
+    return True
+
+
+def fused_opm_supported(c: int, d: int, dtype=None, device=None) -> bool:
+    """The same contract as ``fused_triangle_supported``, for the
+    outer-product-mean's channel ``c`` and output width ``d``, routed by
+    the plan's ``opm`` leg."""
+    leg = kernel_leg("opm")
+    if leg == "oracle":
+        return False
+    if dtype is not None and dtype not in _DTYPES:
+        return False
+    if not (c <= _REF_MAX_OPM_C and d <= _REF_MAX_TRI_C):
+        return False
+    if _is_cuda(device) and leg in ("auto", "pallas"):
+        return c in _tri.OPM_C and d in _tri.OPM_D
+    return True
+
+
 def _tri_fwd(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
-             g_bias, eps):
+             g_bias, eps, kernel):
     """(out, mean, inv)."""
-    if not _on_card(a_lin, "fused_triangle_mult"):
+    if not kernel:
         return ref.triangle_mult_ref(a_lin, ga, mask, b_full, gamma, beta,
                                      w_out, b_out, g_lin, g_bias, eps)
     # a_lin and ga go in as they lie (the column halves of the merged
@@ -228,9 +447,9 @@ def _tri_fwd(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
 class _TriangleMult(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
-                g_bias, eps):
+                g_bias, eps, kernel):
         out, mean, inv = _tri_fwd(a_lin, ga, mask, b_full, gamma, beta, w_out,
-                                  b_out, g_lin, g_bias, eps)
+                                  b_out, g_lin, g_bias, eps, kernel)
         ctx.eps = eps
         # Recompute residuals: the inputs, K7's LN statistics and the output,
         # never the (B, I, J, C) product.
@@ -242,7 +461,7 @@ class _TriangleMult(torch.autograd.Function):
     def backward(ctx, dout):
         grads = triangle_mult_bwd(ctx.eps, ctx.saved_tensors, dout,
                                   need_dmask=ctx.needs_input_grad[2])
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
@@ -259,13 +478,14 @@ def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
     (B, I, J, D). Returns (B, I, J, D) in g_lin's dtype.
     """
     args = (a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin, g_bias)
+    kernel = _runs_kernel("triangle", a_lin)
     if _builds_graph(*args):
-        return _TriangleMult.apply(*args, eps)
-    return _tri_fwd(*args, eps)[0]
+        return _TriangleMult.apply(*args, eps, kernel)
+    return _tri_fwd(*args, eps, kernel)[0]
 
 
-def _opm_fwd(a, b_full, mask_a, mask_b, w, bias):
-    if not _on_card(a, "fused_outer_product_mean"):
+def _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel):
+    if not kernel:
         return ref.outer_product_mean_ref(a, b_full, mask_a, mask_b, w, bias)
     return fused_opm_cuda(a.contiguous(), b_full.contiguous(),
                           mask_a.float().contiguous(),
@@ -276,15 +496,16 @@ def _opm_fwd(a, b_full, mask_a, mask_b, w, bias):
 
 class _OuterProductMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b_full, mask_a, mask_b, w, bias):
-        out = _opm_fwd(a, b_full, mask_a, mask_b, w, bias)
+    def forward(ctx, a, b_full, mask_a, mask_b, w, bias, kernel):
+        out = _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel)
         ctx.save_for_backward(a, b_full, mask_a, mask_b, w, bias, out)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         need = ctx.needs_input_grad
-        return opm_bwd(ctx.saved_tensors, dout, need_dmask=need[2] or need[3])
+        return (*opm_bwd(ctx.saved_tensors, dout,
+                         need_dmask=need[2] or need[3]), None)
 
 
 def fused_outer_product_mean(a: torch.Tensor, b_full: torch.Tensor,
@@ -298,17 +519,18 @@ def fused_outer_product_mean(a: torch.Tensor, b_full: torch.Tensor,
     dtype.
     """
     args = (a, b_full, mask_a, mask_b, w, bias)
+    kernel = _runs_kernel("opm", a)
     if _builds_graph(*args):
-        return _OuterProductMean.apply(*args)
-    return _opm_fwd(*args)
+        return _OuterProductMean.apply(*args, kernel)
+    return _opm_fwd(*args, kernel)
 
 
 # ---------------------------------------------------------------------------
 # bias + dropout + residual add
 # ---------------------------------------------------------------------------
 
-def _bda_fwd(x, b, residual, keep, rate):
-    if not _on_card(residual, "bias_dropout_add"):
+def _bda_fwd(x, b, residual, keep, rate, kernel):
+    if not kernel:
         return ref.bias_dropout_add_ref(x, b, residual, keep, rate)
     return bias_dropout_add_cuda(
         x.contiguous(), b.float().contiguous() if b is not None else None,
@@ -317,11 +539,11 @@ def _bda_fwd(x, b, residual, keep, rate):
 
 class _BiasDropoutAdd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, b, residual, keep, rate):
+    def forward(ctx, x, b, residual, keep, rate, kernel):
         ctx.rate, ctx.x_dtype, ctx.res_dtype = rate, x.dtype, residual.dtype
         ctx.b_dtype = b.dtype if b is not None else None
         ctx.save_for_backward(keep)
-        return _bda_fwd(x, b, residual, keep, rate)
+        return _bda_fwd(x, b, residual, keep, rate, kernel)
 
     @staticmethod
     def backward(ctx, g):
@@ -330,7 +552,7 @@ class _BiasDropoutAdd(torch.autograd.Function):
         if keep is not None:
             dx_f = dx_f * keep.float() / (1.0 - ctx.rate)
         db = _lead_sum(dx_f).to(ctx.b_dtype) if ctx.b_dtype is not None else None
-        return dx_f.to(ctx.x_dtype), db, g.to(ctx.res_dtype), None, None
+        return dx_f.to(ctx.x_dtype), db, g.to(ctx.res_dtype), None, None, None
 
 
 def bias_dropout_add(x: torch.Tensor, b: torch.Tensor | None,
@@ -343,11 +565,12 @@ def bias_dropout_add(x: torch.Tensor, b: torch.Tensor | None,
 
     With neither bias nor dropout this is the plain fp32 residual add, as in
     the reference, and no kernel runs: inference launches none. Otherwise the
-    bias-dropout-add kernel runs on the card."""
+    bias-dropout-add kernel runs where the ``elementwise`` leg says so."""
     if keep is None or rate == 0.0:
         keep, rate = None, 0.0
         if b is None:
             return (x.float() + residual.float()).to(residual.dtype)
+    kernel = _runs_kernel("elementwise", residual)
     if _builds_graph(x, b, residual):
-        return _BiasDropoutAdd.apply(x, b, residual, keep, rate)
-    return _bda_fwd(x, b, residual, keep, rate)
+        return _BiasDropoutAdd.apply(x, b, residual, keep, rate, kernel)
+    return _bda_fwd(x, b, residual, keep, rate, kernel)

@@ -20,6 +20,37 @@ def layer_norm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.to(x.dtype)
 
 
+def softmax_ref(x: torch.Tensor, bias: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None,
+                scale: float = 1.0) -> torch.Tensor:
+    """softmax(scale*x + bias + mask) over the last axis, summed in fp32 in
+    that order, max-shifted; output in x's dtype.
+
+    x: (N, H, R, C)
+    bias: (B, H, R, C) with N % B == 0 (each bias batch element shared by
+          N/B consecutive rows of x), or (H, R, C) as B=1.
+    mask: (N, C) additive, broadcast over H and R.
+
+    A row whose every logit is -inf has its max taken as 0 (the reference's
+    guard, so no -inf - -inf) and then sums to 0: it comes out 0/0 = NaN,
+    as in the reference. A row masked with the finite -1e9 rounds to
+    near-uniform."""
+    acc = x.float() * scale
+    if bias is not None:
+        if bias.ndim == 3:
+            bias = bias[None]
+        b, n = bias.shape[0], x.shape[0]
+        acc = acc.reshape((b, n // b) + acc.shape[1:])
+        acc = acc + bias.float()[:, None]
+        acc = acc.reshape((n,) + acc.shape[2:])
+    if mask is not None:
+        acc = acc + mask.float()[:, None, None, :]
+    m = acc.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    ex = torch.exp(acc - m)
+    return (ex / ex.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
 def bias_sigmoid_mul_ref(g: torch.Tensor, bg: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """sigmoid(g + bg) * v in fp32, output in v's dtype."""

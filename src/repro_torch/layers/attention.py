@@ -1,9 +1,11 @@
 """Gated attention projections (merged QKV, sigmoid output gate).
 
-The attention itself is ``kernels.ops.fused_attention``; these are the
-projections around it, in the reference's layouts: ``project_qkv`` returns
-(..., S, H, hd) views into one merged GEMM's output, and ``output_proj``
-gates the context through the ``bias_sigmoid_mul`` kernel.
+The attention itself is ``kernels.ops.fused_attention`` (the scores never
+in memory) or ``evoformer_attention`` (the scores materialized, then the
+fused softmax); these are the projections around it, in the reference's
+layouts: ``project_qkv`` returns (..., S, H, hd) views into one merged
+GEMM's output, and ``output_proj`` gates the context through the
+``bias_sigmoid_mul`` kernel.
 """
 from __future__ import annotations
 
@@ -70,3 +72,19 @@ def output_proj(p: Params, ctx: torch.Tensor,
     if "b" in p["wo"]:
         out = out + p["wo"]["b"].to(dt)
     return out
+
+
+def evoformer_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        bias: torch.Tensor | None = None,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scores-materialized gated attention, the reference's A/B form of
+    ``ops.fused_attention`` with the same contract: q, k, v (N, S, H, hd);
+    bias (B, H, Sq, Skv) with N % B == 0 (each bias batch element shared by
+    N/B rows); mask (N, Skv) additive. The (N, H, Sq, Skv) scores are one
+    product, their softmax is ``ops.fused_softmax`` (the fused softmax
+    kernel on the card), and the context a second product. Returns
+    (N, Sq, H, hd)."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("nqhd,nkhd->nhqk", q, k)
+    probs = ops.fused_softmax(scores, bias=bias, mask=mask, scale=scale)
+    return torch.einsum("nhqk,nkhd->nqhd", probs, v)

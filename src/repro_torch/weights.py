@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 _STACKED = "evoformer"
 
 
@@ -48,9 +50,12 @@ def _n_layers(tree) -> int:
     return np.shape(tree)[0]
 
 
-def params_from_numpy(tree: dict, device="cpu",
+def params_from_numpy(tree: dict, device=None,
                       dtype: torch.dtype = torch.float32) -> dict:
-    """Reference parameter tree (numpy leaves) -> the port's parameters."""
+    """Reference parameter tree (numpy leaves) -> the port's parameters on
+    ``device``: None means the card (``device.resolve_device``, which
+    raises where there is none), ``"cpu"`` the explicit opt-in."""
+    device = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if k == _STACKED:

@@ -48,7 +48,7 @@ def test_serve_matches_reference(jax_tree):
                              n_real=8)).as_dict(),
     ]
     ff = FastFold(T_SMOKE, device="cpu", dtype=torch.float32)
-    outs = ff.serve(params_from_numpy(tree), requests)
+    outs = ff.serve(params_from_numpy(tree, device="cpu"), requests)
     j_cfg = dataclasses.replace(J_SMOKE, compute_dtype=jnp.float32)
     j_params = jax.tree.map(jnp.asarray, tree)
     with use_plan(preset("default")):
@@ -71,8 +71,8 @@ def test_padding_leaves_real_residues_alone(jax_tree):
     assert pad.msa_mask[..., 8:].sum() == 0 and pad.msa_mask[..., :8].all()
     np.testing.assert_array_equal(pad.msa, full.msa)
     ff = FastFold(T_SMOKE, device="cpu")
-    out = ff.forward(params_from_numpy(randomize_tree(jax_tree, 22)),
-                     pad.as_dict())
+    out = ff.forward(params_from_numpy(randomize_tree(jax_tree, 22),
+                                       device="cpu"), pad.as_dict())
     for k in OUTPUTS:
         assert torch.isfinite(out[k].float()).all(), k
 
@@ -87,7 +87,7 @@ def test_data_generator_is_byte_identical():
 
 def test_params_bridge_round_trip(jax_tree):
     tree = randomize_tree(jax_tree, 23)
-    params = params_from_numpy(tree)
+    params = params_from_numpy(tree, device="cpu")
     assert len(params["evoformer"]) == J_SMOKE.evoformer.n_blocks
     back = params_to_numpy(params)
     flat_a = jax.tree_util.tree_leaves_with_path(tree)

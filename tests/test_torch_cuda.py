@@ -9,10 +9,12 @@ on a machine without it:
 import pytest
 import torch
 
+from repro_torch.exec.plan import ExecutionPlan, KernelPolicy, use_plan
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
+from repro_torch.kernels.fused_softmax import fused_softmax_cuda
 from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 
 pytestmark = pytest.mark.cuda
@@ -268,3 +270,102 @@ def test_triangle_and_opm_refuse_other_widths(gen):
         fused_opm_cuda(a, a, torch.ones((1, 4, 8), device="cuda"),
                        torch.ones((1, 4, 8), device="cuda"),
                        _randn(gen, (64 * 64, 128)), torch.zeros(128, device="cuda"))
+
+
+def _softmax_err(got, want, tol):
+    """Max over the elements that are not NaN in ``want`` of |got - want| /
+    max(|want|, SOFTMAX_ATOL / tol): held to ``tol`` this is |got - want| <=
+    max(tol * |want|, SOFTMAX_ATOL), each element against its own value (a
+    softmax output is ~1/C, far below a limit relative to max(1, .))."""
+    nan = torch.isnan(want)
+    g = got.float().masked_fill(nan, 0)
+    w = want.float().masked_fill(nan, 0)
+    return ((g - w).abs() / w.abs().clamp_min(SOFTMAX_ATOL / tol)).max().item()
+
+
+# One rounding of the output: a bf16 ulp is at most 2**-7 of the value,
+# an fp32 sum in another order a few fp32 ulps; below SOFTMAX_ATOL an
+# element is held absolutely.
+SOFTMAX_ATOL = 1e-9
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("n,h,r,c,nb,bias,mask", [
+    (6, 2, 5, 256, 2, True, True),       # rep 3, warp path, 16-byte loads
+    (4, 2, 3, 200, 4, True, True),       # rep 1, ragged against the warp
+    (3, 1, 4, 33, 1, True, False),       # odd C: scalar loads
+    (2, 2, 3, 1, 1, False, True),        # C = 1
+    (2, 1, 2, 3000, 1, True, True),      # block per row
+    (1, 1, 2, 16384, 1, False, False),   # the envelope's edge
+])
+def test_fused_softmax_kernel(gen, n, h, r, c, nb, bias, mask, dtype, tol):
+    """K4 against softmax_ref, element by element, with one row masked by
+    -1e9 (near-uniform) and one by -inf (NaN, as in the reference); the
+    same limit rejects the plain version with the mask or the bias left out,
+    or with the -1e9 row written as 0."""
+    x = (torch.randn((n, h, r, c), generator=gen, device="cuda") * 2).to(dtype)
+    b = (torch.randn((nb, h, r, c), generator=gen, device="cuda").to(dtype)
+         if bias else None)
+    m = None
+    if mask:
+        keep = torch.rand((n, c), generator=gen, device="cuda") < 0.8
+        m = torch.where(keep, 0.0, -1e9).float()
+        m[0] = -1e9
+        m[-1] = float("-inf")
+    _build.reset_launches()
+    got = fused_softmax_cuda(x, b, m, 0.3)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_softmax"] == 1
+    assert got.dtype == dtype
+    want = ref.softmax_ref(x, b, m, 0.3)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert _softmax_err(got, want, tol) <= tol
+    controls = [ref.softmax_ref(x, b, None, 0.3) if mask else None,
+                ref.softmax_ref(x, None, m, 0.3) if bias else None]
+    if mask and c > 1:
+        controls.append(want.clone())
+        controls[-1][0] = 0
+    nan = torch.isnan(want)
+    for bad in controls:
+        if bad is not None and not torch.equal(bad.masked_fill(nan, 0),
+                                               want.masked_fill(nan, 0)):
+            assert _softmax_err(bad, want, tol) > tol
+
+
+def test_attention_oracle_runs_the_softmax_kernel_with_autograd(gen):
+    """Under KernelPolicy(attention="oracle") the 5D softmax flattens onto
+    K4, and its backward is the reference's VJP: the gradients match
+    autograd of the plain version."""
+    x = torch.randn((2, 3, 2, 40, 40), generator=gen, device="cuda",
+                    requires_grad=True)
+    bias = torch.randn((2, 2, 40, 40), generator=gen, device="cuda",
+                       requires_grad=True)
+    mask = torch.where(torch.rand((2, 3, 40), generator=gen, device="cuda")
+                       < 0.8, 0.0, -1e9)
+    plan = ExecutionPlan(kernels=KernelPolicy(attention="oracle"))
+    _build.reset_launches()
+    with use_plan(plan):
+        y = ops.fused_softmax(x, bias=bias, mask=mask, scale=0.25)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_softmax"] == 1
+    got = (x.grad, bias.grad)
+    x.grad = bias.grad = None
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(softmax="xla"))):
+        want_y = ops.fused_softmax(x, bias=bias, mask=mask, scale=0.25)
+    want_y.square().sum().backward()
+    assert _build.LAUNCHES["fused_softmax"] == 1       # the plain version
+    _close(y, want_y, 1e-5)
+    for g, w in zip(got, (x.grad, bias.grad)):
+        _close(g, w, 1e-5)
+
+
+def test_oracle_plan_launches_nothing(gen):
+    x = torch.randn((4, 8), generator=gen, device="cuda")
+    _build.reset_launches()
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(enabled=False))):
+        ops.layer_norm(x, torch.ones(8, device="cuda"),
+                       torch.zeros(8, device="cuda"))
+        ops.fused_softmax(x.view(1, 1, 4, 8))
+    assert sum(_build.LAUNCHES.values()) == 0

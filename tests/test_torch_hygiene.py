@@ -1,6 +1,7 @@
 """Port hygiene and device policy: the PyTorch port imports no JAX and
 nothing of the JAX package, runs on the card unless asked for the CPU, sends
-CPU tensors to the plain versions without touching a kernel, and builds its
+CPU tensors to the plain versions without touching a kernel (under every
+plan leg, as the leg table of ``kernels/ops.py`` says), and builds its
 kernels with nvcc for sm_90a into a directory git ignores."""
 import ast
 import os
@@ -15,14 +16,17 @@ import torch
 from repro_torch.configs import SMOKE
 from repro_torch.data import protein_batches
 from repro_torch.exec import FastFold
-from repro_torch.kernels import _build, ops
+from repro_torch.exec.plan import ExecutionPlan, KernelPolicy, use_plan
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
                                                    bias_sigmoid_mul_cuda)
+from repro_torch.kernels.fused_softmax import fused_softmax_cuda
 from repro_torch.kernels.layer_norm import layer_norm_cuda
 from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
 from repro_torch.train import make_train_step
+from repro_torch.weights import params_from_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -72,6 +76,10 @@ def test_fastfold_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FastFold(SMOKE)
     assert FastFold(SMOKE, device="cpu").device == torch.device("cpu")
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -94,6 +102,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
                         torch.randn(2, 5, 1, 8))
     ops.fused_triangle_mult(*_triangle_args())
     ops.fused_outer_product_mean(*_opm_args())
+    ops.fused_softmax(*_softmax_args())
     keep = torch.ones(4, 1)
     ops.bias_dropout_add(x, torch.zeros(8), x, 0.25, keep)
     # The backwards too: a CPU training step launches nothing either.
@@ -131,6 +140,12 @@ def _triangle_args(c=32, d=32):
             torch.zeros(d))
 
 
+def _softmax_args():
+    """CPU arguments of the fused softmax op, 5D: B=2, G=3, H=2, R=C=5."""
+    return (torch.randn(2, 3, 2, 5, 5), torch.randn(2, 2, 5, 5),
+            torch.zeros(2, 3, 5), 0.5)
+
+
 def _opm_args(c=16, d=32):
     """CPU arguments of the fused OPM op: B=1, S=3, I=J=5."""
     x = torch.randn(1, 3, 5, c)
@@ -156,6 +171,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_attention_bwd_cuda(q, q, q, q, q, lse, None, None, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         bias_dropout_add_cuda(x, None, x, torch.ones(4, 1), 0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_softmax_cuda(torch.randn(2, 1, 3, 5), None, None, 1.0)
 
 
 def test_build_targets_sm90a_in_ignored_dir():
@@ -171,7 +188,8 @@ def test_build_targets_sm90a_in_ignored_dir():
     assert sources == set(_build.SIGNATURES)
     assert sources == {"layer_norm", "bias_sigmoid_mul", "flash_attention_fwd",
                        "triangle_mult", "outer_product_mean",
-                       "flash_attention_bwd", "bias_dropout_add"}
+                       "flash_attention_bwd", "bias_dropout_add",
+                       "fused_softmax"}
 
 
 FAKE_NVCC = """\
@@ -218,3 +236,189 @@ def test_launch_check_raises_and_counts():
     assert _build.LAUNCHES["layer_norm"] == 1
     _build.reset_launches()
     assert np.sum(list(_build.LAUNCHES.values())) == 0
+
+
+# ---------------------------------------------------------------------------
+# The leg table of kernels/ops.py
+# ---------------------------------------------------------------------------
+
+def _op_calls():
+    """Each op family's entry point on CPU tensors, with its plain version
+    on the same inputs."""
+    x = torch.randn(4, 8)
+    keep = torch.ones(4, 1)
+    q = torch.randn(2, 5, 1, 8)
+    sx, sb, sm, sc = _softmax_args()
+    sx4, sm4 = sx.reshape(6, 2, 5, 5), sm.reshape(6, 5)
+    tri, opm = _triangle_args(), _opm_args()
+    return {
+        "layer_norm": (lambda: ops.layer_norm(x, torch.ones(8), torch.zeros(8)),
+                       lambda: ref.layer_norm_ref(x, torch.ones(8),
+                                                  torch.zeros(8))),
+        "elementwise": (lambda: ops.bias_dropout_add(x, torch.zeros(8), x,
+                                                     0.25, keep),
+                        lambda: ref.bias_dropout_add_ref(x, torch.zeros(8), x,
+                                                         keep, 0.25)),
+        "attention": (lambda: ops.fused_attention(q, q, q, scale=0.5),
+                      lambda: ref.attention_ref(q, q, q, None, None, 0.5)[0]),
+        "triangle": (lambda: ops.fused_triangle_mult(*tri),
+                     lambda: ref.triangle_mult_ref(*tri)[0]),
+        "opm": (lambda: ops.fused_outer_product_mean(*opm),
+                lambda: ref.outer_product_mean_ref(*opm)),
+        # The 4D form (the 5D form on the CPU is the unflattened plain one).
+        "softmax": (lambda: ops.fused_softmax(sx4, sb, sm4, sc),
+                    lambda: ref.softmax_ref(sx4, sb, sm4, sc)),
+    }
+
+
+LEGS = [("auto", True), ("auto", False), ("oracle", True), ("xla", True),
+        ("interpret", True)]
+
+
+@pytest.mark.parametrize("leg,enabled", LEGS,
+                         ids=[f"{l}-{'on' if e else 'off'}" for l, e in LEGS])
+@pytest.mark.parametrize("op", ["layer_norm", "elementwise", "attention",
+                                "triangle", "opm", "softmax"])
+def test_every_leg_runs_the_plain_version_on_cpu(op, leg, enabled,
+                                                 monkeypatch):
+    monkeypatch.setattr(_build, "entry", lambda name: pytest.fail(name))
+    plan = ExecutionPlan(kernels=KernelPolicy(enabled=enabled, **{op: leg}))
+    run, plain = _op_calls()[op]
+    with use_plan(plan):
+        assert ops.kernel_leg(op) == ("oracle" if leg == "auto" and not enabled
+                                      else leg)
+        torch.testing.assert_close(run(), plain(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("op", ["layer_norm", "elementwise", "attention",
+                                "triangle", "opm", "softmax"])
+def test_pallas_leg_raises_on_cpu(op):
+    run, _ = _op_calls()[op]
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(**{op: "pallas"}))):
+        with pytest.raises(ValueError, match="'pallas' leg"):
+            run()
+
+
+# (predicate, leg field, reference-envelope args in, out, card-kernel args
+# in, out)
+PREDICATES = [
+    (ops.fused_attention_supported, "attention", ((1, 4, 6, 2, 8),),
+     ((1, 4, 6, 2, 300),), ((1, 4, 6, 2, 32),), ((1, 4, 6, 2, 8),)),
+    (ops.fused_triangle_supported, "triangle", (16, 16), (2048, 16),
+     (128, 128), (16, 16)),
+    (ops.fused_opm_supported, "opm", (8, 16), (128, 16), (32, 128), (8, 16)),
+]
+
+
+@pytest.mark.parametrize("pred,op,ref_in,ref_out,card_in,card_out", PREDICATES,
+                         ids=["attention", "triangle", "opm"])
+def test_envelopes_follow_leg_and_device(pred, op, ref_in, ref_out, card_in,
+                                         card_out):
+    """On a CPU tensor the reference's envelope; on a CUDA tensor under a
+    leg that runs the kernel, the kernel's own; under an oracle leg, never
+    fused. No card is needed: the predicates read the device's type."""
+    for dev in (None, "cpu"):
+        assert pred(*ref_in, device=dev) and not pred(*ref_out, device=dev)
+        assert pred(*card_out, device=dev)
+    assert pred(*card_in, device="cuda") and not pred(*card_out, device="cuda")
+    assert not pred(*ref_in, dtype=torch.float16)
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(**{op: "xla"}))):
+        assert pred(*card_out, device="cuda")           # the plain version
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(**{op: "pallas"}))):
+        assert not pred(*card_out, device="cuda")
+    for plan in (ExecutionPlan(kernels=KernelPolicy(**{op: "oracle"})),
+                 ExecutionPlan(kernels=KernelPolicy(enabled=False))):
+        with use_plan(plan):
+            assert not pred(*card_in, device="cuda")
+            assert not pred(*ref_in, device="cpu")
+
+
+def _fake_card(monkeypatch):
+    """Route as if every tensor lay on the card, with each CUDA wrapper
+    replaced by its plain version; returns the calls by kernel."""
+    calls = []
+    monkeypatch.setattr(ops, "_on_card", lambda t, op: True)
+    monkeypatch.setattr(ops, "_is_cuda", lambda device: True)
+    fakes = {
+        "layer_norm_cuda": lambda x, g, b, eps: ref.layer_norm_ref(x, g, b, eps),
+        "bias_sigmoid_mul_cuda": ref.bias_sigmoid_mul_ref,
+        "flash_attention_cuda": ref.attention_ref,
+        "flash_attention_bwd_cuda": lambda q, k, v, out, do, lse, b, m, s, nd:
+            ref.attention_bwd_ref(q, k, v, do, out, lse, b, m, s),
+        "fused_triangle_cuda": ref.triangle_mult_ref,
+        "fused_opm_cuda": ref.outer_product_mean_ref,
+        "bias_dropout_add_cuda": ref.bias_dropout_add_ref,
+        "fused_softmax_cuda": ref.softmax_ref,
+    }
+    for name, fn in fakes.items():
+        monkeypatch.setattr(ops, name, lambda *a, _f=fn, _n=name: (
+            calls.append(_n), _f(*a))[1])
+    return calls
+
+
+@pytest.mark.parametrize("bwd", ["auto", "scan"])
+def test_attention_backward_keeps_the_forward_leg(bwd, monkeypatch):
+    """On a (simulated) card, ``attn_bwd`` as resolved at the forward
+    decides the backward, though the backward runs on another thread,
+    outside the forward's ``use_plan`` scope."""
+    import threading
+
+    calls = _fake_card(monkeypatch)
+    scan = []
+    real_bwd = ref.attention_bwd_ref
+    monkeypatch.setattr(ops.ref, "attention_bwd_ref", lambda *a: (
+        scan.append(1), real_bwd(*a))[1])
+    q = torch.randn(2, 5, 1, 8, requires_grad=True)
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(attn_bwd=bwd))):
+        out = ops.fused_attention(q, q, q, bias=torch.randn(1, 1, 5, 5))
+    t = threading.Thread(target=lambda: out.sum().backward())
+    t.start()
+    t.join()
+    assert q.grad is not None
+    if bwd == "auto":
+        assert calls == ["flash_attention_cuda", "flash_attention_bwd_cuda"]
+        assert scan == [1]          # inside the stand-in for the kernel
+    else:
+        assert calls == ["flash_attention_cuda"] and scan == [1]
+
+
+def test_smoke_widths_take_the_materialized_branches_on_the_card(monkeypatch):
+    """SMOKE's widths (head dim 8, triangle C 16, OPM C 8) lie outside the
+    attention, triangle and OPM kernels: on a (simulated) card the default
+    plan runs K4 at every attention site and none of K5, K7, K8."""
+    calls = _fake_card(monkeypatch)
+    ff = FastFold(SMOKE, device="cpu")
+    batch = next(protein_batches(batch=1, n_seq=3, n_res=6, seed=0)).as_dict()
+    out = ff.forward(ff.init(seed=0), batch)
+    assert torch.isfinite(out["coords"]).all()
+    passes, nb = SMOKE.n_recycle + 1, SMOKE.evoformer.n_blocks
+    assert calls.count("fused_softmax_cuda") == 4 * nb * passes
+    for k in ("flash_attention_cuda", "fused_triangle_cuda", "fused_opm_cuda"):
+        assert k not in calls
+    assert calls.count("bias_sigmoid_mul_cuda") == (4 + 2) * nb * passes
+
+
+KERNEL_OF = {"layer_norm": "layer_norm_cuda",
+             "elementwise": "bias_dropout_add_cuda",
+             "attention": "flash_attention_cuda",
+             "triangle": "fused_triangle_cuda", "opm": "fused_opm_cuda",
+             "softmax": "fused_softmax_cuda"}
+CARD_LEGS = LEGS + [("pallas", True)]
+
+
+@pytest.mark.parametrize("leg,enabled", CARD_LEGS,
+                         ids=[f"{l}-{'on' if e else 'off'}" for l, e in CARD_LEGS])
+@pytest.mark.parametrize("op", list(KERNEL_OF))
+def test_every_leg_on_a_simulated_card(op, leg, enabled, monkeypatch):
+    """The CUDA column of the leg table, with the CUDA wrappers swapped for
+    their plain versions: ``auto`` (kernels enabled) and ``pallas`` reach
+    the kernel; ``auto`` with kernels disabled, ``oracle``, ``xla`` and
+    ``interpret`` run the plain version, on the same numbers."""
+    calls = _fake_card(monkeypatch)
+    run, plain = _op_calls()[op]
+    with use_plan(ExecutionPlan(kernels=KernelPolicy(enabled=enabled,
+                                                     **{op: leg}))):
+        got = run()
+    kernel = leg == "pallas" or (leg == "auto" and enabled)
+    assert calls == ([KERNEL_OF[op]] if kernel else []), calls
+    torch.testing.assert_close(got, plain(), rtol=0, atol=0)

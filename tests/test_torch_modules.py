@@ -42,7 +42,7 @@ J_EVO, T_EVO = J_SMOKE.evoformer, T_SMOKE.evoformer
 def _pair_of_trees(tree):
     """The same numpy tree as JAX arrays and as the port's tensors."""
     return (jax.tree.map(jnp.asarray, tree),
-            params_from_numpy({"x": tree})["x"])
+            params_from_numpy({"x": tree}, device="cpu")["x"])
 
 
 @pytest.fixture(scope="module")

@@ -83,7 +83,7 @@ def _jb(batch):
 
 def _port_loss_and_grads(tree, batch, *, keeps=None, remat=True):
     params = tree_map(lambda t: t.requires_grad_(True),
-                      params_from_numpy(tree))
+                      params_from_numpy(tree, device="cpu"))
     ff = FastFold(T_CFG, device="cpu")
     loss, metrics = alphafold_train_loss(params, ff.batch_to_device(batch),
                                          T_CFG, keeps=keeps, remat=remat)
@@ -196,10 +196,9 @@ def test_optimizer_update_matches_reference(name, tree):
                             jax.tree.map(jnp.asarray, v))
     j_p, j_s = j_update(jax.tree.map(jnp.asarray, params),
                         jax.tree.map(jnp.asarray, grads), j_state, 3e-3, **kw)
-    t_state = OptState(torch.tensor(4, dtype=torch.int32),
-                       params_from_numpy(m), params_from_numpy(v))
-    t_p, t_s = t_update(params_from_numpy(params), params_from_numpy(grads),
-                        t_state, 3e-3, **kw)
+    cpu = lambda t: params_from_numpy(t, device="cpu")
+    t_state = OptState(torch.tensor(4, dtype=torch.int32), cpu(m), cpu(v))
+    t_p, t_s = t_update(cpu(params), cpu(grads), t_state, 3e-3, **kw)
     assert int(t_s.step) == int(j_s.step) == 5
     for got, want in ((t_p, j_p), (t_s.m, j_s.m), (t_s.v, j_s.v)):
         got = dict(jax.tree_util.tree_leaves_with_path(params_to_numpy(got)))
@@ -210,7 +209,7 @@ def test_optimizer_update_matches_reference(name, tree):
 
 
 def test_optimizer_init_is_fp32_zeros(tree):
-    params = params_from_numpy(tree, dtype=torch.bfloat16)
+    params = params_from_numpy(tree, dtype=torch.bfloat16, device="cpu")
     for init in (adamw_init, lamb_init):
         state = init(params)
         assert int(state.step) == 0
@@ -224,7 +223,7 @@ def test_clip_by_global_norm_matches_reference(max_norm, tree):
     _, grads, _, _ = _opt_trees(tree, 42)
     j_g, j_n = jopt.clip_by_global_norm(jax.tree.map(jnp.asarray, grads),
                                         max_norm)
-    t_g, t_n = clip_by_global_norm(params_from_numpy(grads), max_norm)
+    t_g, t_n = clip_by_global_norm(params_from_numpy(grads, device="cpu"), max_norm)
     np.testing.assert_allclose(float(t_n), float(j_n), rtol=1e-6)
     got = dict(jax.tree_util.tree_leaves_with_path(params_to_numpy(t_g)))
     for path, w in jax.tree_util.tree_leaves_with_path(
@@ -257,7 +256,7 @@ def test_three_steps_track_the_reference(tree, batches):
     j_state = j_init(jax.tree.map(jnp.asarray, tree))
     ff = FastFold(T_CFG, device="cpu")
     init, step = make_train_step(ff.loss_fn, **STEP_KW)
-    state = init(params_from_numpy(tree))
+    state = init(params_from_numpy(tree, device="cpu"))
     for batch in batches:
         j_state, j_metrics = j_step(j_state, _jb(batch), None)
         state, metrics = step(state, batch)
@@ -278,7 +277,7 @@ def test_metric_keys_always_present(accum_steps, guard, tree):
     init, step = make_train_step(ff.loss_fn, accum_steps=accum_steps,
                                  guard_nonfinite=guard, **STEP_KW)
     batch = next(protein_batches(batch=2, n_seq=4, n_res=8, seed=5)).as_dict()
-    state, metrics = step(init(params_from_numpy(tree)), batch,
+    state, metrics = step(init(params_from_numpy(tree, device="cpu")), batch,
                           torch.Generator().manual_seed(0))
     assert {"loss", "grad_norm", "lr", "nonfinite_skips"} <= set(metrics)
     assert float(metrics["nonfinite_skips"]) == 0.0
