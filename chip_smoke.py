@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -99,7 +100,9 @@ TOL = {
 # -1e9 written as 0.
 SOFTMAX_ATOL = 1e-9
 # The attention backward sums S*D terms in another order than the plain
-# version's GEMMs and rounds each output once to the dtype; the
+# version's GEMMs and rounds each output once to the dtype (in bf16 it also
+# rounds P and dS to bf16 as the operands of its tensor-core products, where
+# the plain version keeps them fp32); the
 # bias-dropout-add kernel computes the plain version's fp32 expression and
 # rounds once.
 # Attention's lse: an fp32 sum. The triangle's LN mean and inv: fp32 sums
@@ -207,6 +210,54 @@ def bound(bytes_moved: int, ops: float, dtype: str) -> tuple[float, str]:
     t_mem = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def _entry_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled entry name,
+    e.g. 'flash_bwd_dq_mma_kernel<32, 4>' or 'dq_kernel<float, 16>'. The
+    identifier's length prefix may follow digits of the namespace's hash,
+    so every suffix of every digit run is tried, and of the identifiers
+    ending in '_kernel' the first to end, and of those the shortest, wins."""
+    found = []
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group()
+        for i in range(len(run)):
+            size = int(run[i:])
+            name = mangled[m.end():m.end() + size]
+            if (size and len(name) == size and name.endswith("_kernel")
+                    and re.fullmatch(r"[a-z_][a-z0-9_]*", name)):
+                found.append((m.end() + size, size, name))
+    if not found:
+        return mangled
+    end, _, name = min(found)
+    rest = mangled[end:]
+    args = []
+    if rest.startswith("If"):
+        args.append("float")
+    elif rest.startswith("I13__nv_bfloat16"):
+        args.append("bf16")
+    args += re.findall(r"Li(\d+)E", rest[:rest.find("EE") + 2] if "EE" in rest
+                       else "")
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, spills and static shared memory of each entry point, as
+    nvcc -Xptxas -v reports them."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rows.append({"entry": _entry_name(m.group(1))})
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                      r"spill loads", line)):
+            rows[-1]["spill_stores"] = int(m.group(1))
+            rows[-1]["spill_loads"] = int(m.group(2))
+        elif rows and (m := re.search(r"Used (\d+) registers", line)):
+            rows[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -379,8 +430,10 @@ def kernel_phase(torch, timer, seen):
     the edge cases."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import (bwd_groups,
+                                                     flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     fwd_groups)
     from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
                                                        bias_sigmoid_mul_cuda)
     from repro_torch.kernels.fused_softmax import fused_softmax_cuda
@@ -479,18 +532,47 @@ def kernel_phase(torch, timer, seen):
             mask = torch.where(keep, 0.0, -1e9).float()
         return q, k, v, bias, mask
 
-    def check_attn(case, layout, nb, wm, n_masked, dt, main):
+    def controls_rejected(kernel, case, dt, controls, want):
+        """Each control (the plain version with the mask or the bias left
+        out) must lie outside the limit the kernel is held to: its error as
+        ``rel_err`` measures it, non-finite counting as rejected."""
+        tol, out = TOL[kernel][dt], {}
+        for cname, bad in controls.items():
+            errs = [rel_err(b, w)[1] for b, w in zip(bad, want)
+                    if w is not None]
+            worst = (float("nan") if any(e != e for e in errs)
+                     else max(errs))
+            out[cname] = worst if worst == worst and worst != float("inf") \
+                else "non-finite"
+            if worst <= tol:
+                fail(f"{kernel} {case} {dt}: the limit {tol} does not reject "
+                     f"the control '{cname}' ({worst:.3g})")
+        return out
+
+    def check_attn(case, layout, nb, wm, n_masked, dt, main, groups=None):
         q, k, v, bias, mask = attn_inputs(layout, nb, wm, n_masked, dt)
         n, sq, h, d = q.shape
         skv = k.shape[1]
         scale = 1.0 / d ** 0.5
-        out, lse = flash_attention_cuda(q, k, v, bias, mask, scale)
+        rep = n // nb if nb else None
+        g_used = groups or (fwd_groups(n, sq, skv, h, rep) if dt == "bfloat16"
+                            else 1)
+        out, lse = flash_attention_cuda(q, k, v, bias, mask, scale, groups)
         want, want_lse = ref.attention_ref(q, k, v, bias, mask, scale)
         lse_err, lse_rel = rel_err(lse, want_lse)
         if lse_rel > LSE_TOL:
             fail(f"flash_attention_fwd {case} {dt}: lse error {lse_rel:.3g}")
+        controls = {}
+        if wm:
+            controls["mask left out"] = ref.attention_ref(q, k, v, bias, None,
+                                                          scale)[:1]
+        if nb:
+            controls["bias left out"] = ref.attention_ref(q, k, v, None, mask,
+                                                          scale)[:1]
+        control_err = controls_rejected("flash_attention_fwd", case, dt,
+                                        controls, (want,))
+        del controls
         timing = None
-        rep = n // nb if nb else None
         if main:
             # The library call takes (N, H, S, D) and one additive mask, so
             # bias and key mask are combined into one (N, H, Sq, Skv) tensor
@@ -505,7 +587,7 @@ def kernel_phase(torch, timer, seen):
                             4.0 * n * h * sq * skv * d, dt)
             timing = {
                 "ms": timer(lambda: flash_attention_cuda(q, k, v, bias, mask,
-                                                         scale)),
+                                                         scale, groups)),
                 "plain_ms": timer(lambda: ref.attention_ref(q, k, v, bias,
                                                             mask, scale)),
                 "library_ms": timer(lambda: F.scaled_dot_product_attention(
@@ -514,7 +596,8 @@ def kernel_phase(torch, timer, seen):
         record("flash_attention_fwd", case, dt, (n, sq, skv, h, d), out, want,
                timing, {"main_path": main, "rep": rep, "bias": bool(nb),
                         "mask": wm, "fully_masked_rows": n_masked if wm else 0,
-                        "lse_max_rel_err": lse_rel})
+                        "groups": g_used, "lse_max_rel_err": lse_rel,
+                        "control_rel_err": control_err})
 
     def strided(shape, stride, dt, scale=1.0):
         """A view of the given shape and strides into a random buffer."""
@@ -628,23 +711,44 @@ def kernel_phase(torch, timer, seen):
     # lse) on inputs laid out as the main path lays them out; the cotangent
     # is contiguous, as autograd hands it over.
     def check_attn_bwd(case, layout, nb, wm, n_masked, dt, main,
-                       need_dmask=False):
+                       need_dmask=False, groups=None, bitwise=False):
         q, k, v, bias, mask = attn_inputs(layout, nb, wm, n_masked, dt)
         n, sq, h, d = q.shape
         skv = k.shape[1]
         scale = 1.0 / d ** 0.5
+        rep = n // nb if nb else None
+        g_used = groups or (bwd_groups(n, sq, skv, h, rep) if dt == "bfloat16"
+                            else 1)
         out, lse = flash_attention_cuda(q, k, v, bias, mask, scale)
         do = randn((n, sq, h, d), dt)
         args = (q, k, v, out, do, lse, bias, mask, scale)
-        got = flash_attention_bwd_cuda(*args, need_dmask)
+        got = flash_attention_bwd_cuda(*args, need_dmask, groups)
         want = ref.attention_bwd_ref(q, k, v, do, out, lse, bias, mask, scale)
         errs = {}
         for name, g, w in zip(("dq", "dk", "dv", "dbias", "dmask"), got, want):
             if g is not None:
                 errs[name] = rel_err(g, w)
         worst = max(errs, key=lambda e: errs[e][1])
+        controls = {}
+        if wm:
+            controls["mask left out"] = ref.attention_bwd_ref(
+                q, k, v, do, out, lse, bias, None, scale)[:3]
+        if nb:
+            controls["bias left out"] = ref.attention_bwd_ref(
+                q, k, v, do, out, lse, None, mask, scale)[:3]
+        control_err = controls_rejected("flash_attention_bwd", case, dt,
+                                        controls, want[:3])
+        del controls
+        extra = {}
+        if bitwise:
+            # Deterministic: a second run gives the same bits.
+            again = flash_attention_bwd_cuda(*args, need_dmask, groups)
+            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)
+            extra["bit_identical_rerun"] = same
+            if not same:
+                fail(f"flash_attention_bwd {case} {dt}: two runs differ")
         timing = None
-        rep = n // nb if nb else None
         if main:
             # The least work: five S x S x D products (s, dp, dv, dq, dk);
             # the kernel recomputes s and dp in each of its sweeps.
@@ -652,7 +756,8 @@ def kernel_phase(torch, timer, seen):
                             10.0 * n * h * sq * skv * d, dt)
             lib_ms, lib_call = sdpa_backward_ms(q, k, v, bias, mask, do, scale)
             timing = {
-                "ms": timer(lambda: flash_attention_bwd_cuda(*args, need_dmask)),
+                "ms": timer(lambda: flash_attention_bwd_cuda(*args, need_dmask,
+                                                             groups)),
                 "plain_ms": timer(lambda: ref.attention_bwd_ref(
                     q, k, v, do, out, lse, bias, mask, scale)),
                 "library_ms": lib_ms, "library_call": lib_call,
@@ -663,9 +768,10 @@ def kernel_phase(torch, timer, seen):
                timing, {"main_path": main, "rep": rep, "bias": bool(nb),
                         "mask": wm, "dmask": need_dmask,
                         "fully_masked_rows": n_masked if wm else 0,
-                        "worst_output": worst,
+                        "groups": g_used, "worst_output": worst,
                         "max_rel_err_by_output": {
-                            e: errs[e][1] for e in errs}})
+                            e: errs[e][1] for e in errs},
+                        "control_rel_err": control_err, **extra})
 
     def sdpa_backward_ms(q, k, v, bias, mask, do, scale):
         """The backward of F.scaled_dot_product_attention on (N, H, S, D)
@@ -823,8 +929,16 @@ def kernel_phase(torch, timer, seen):
               "flash_attention_bwd": lambda case, *a: check_attn_bwd(
                   case, *a[:-2], 2, *a[-2:]),
               "bias_dropout_add": check_bda, "fused_softmax": check_softmax}
+    bitwise_done = False
     for kernel, calls in seen.items():
         for sig, req in calls.items():
+            if (kernel == "flash_attention_bwd" and sig[-1] == "bfloat16"
+                    and not bitwise_done):
+                # One main-path shape also shows that K6 is deterministic.
+                check_attn_bwd(f"{req} main path", *sig[:-1], 2, sig[-1],
+                               True, bitwise=True)
+                bitwise_done = True
+                continue
             checks[kernel](f"{req} main path", *sig, True)
         for sig, req in calls.items():
             sig2 = sig[:-1] + (other[sig[-1]],)
@@ -838,18 +952,36 @@ def kernel_phase(torch, timer, seen):
                              (1, (n, skv, h, d), (s * w, w, d, 1), h * d),
                              (2, (n, skv, h, d), (s * w, w, d, 1), 2 * h * d))),)
 
+    def misaligned_layout(n, s, h, d):
+        """q, k, v in one buffer at an odd element offset, with an S stride
+        of 3 H D + 2: neither the pointers nor the strides allow 16-byte
+        copies, so the bf16 wrappers copy them first."""
+        w = 3 * h * d + 2
+        return ((n * s * w + 8, tuple(
+            (i, (n, s, h, d), (s * w, w, d, 1), 1 + i * h * d)
+            for i in range(3))),)
+
     for dt in dts:
         check_ln("odd_c100", (3, 7, 100), dt, False)
         check_ln("c384", (2, 50, 384), dt, False)
         check_bsm("2d", (1000, 72), dt, False)
-        # (case, N, Sq, Skv, H, D, B, mask, fully masked rows)
-        for case, n, sq, skv, h, d, nb, wm, nm in [
-                ("ragged_skv200", 6, 64, 200, 4, 32, 2, True, 0),
-                ("fully_masked_rows", 8, 100, 100, 4, 32, 2, True, 3),
-                ("no_bias_no_mask", 4, 130, 130, 2, 32, 0, False, 0),
-                ("head_dim16", 4, 40, 40, 2, 16, 4, False, 0)]:
+        # (case, N, Sq, Skv, H, D, B, mask, fully masked rows, G): Sq and
+        # Skv off the 64-row tiles, Sq < 16, rep 1, rep > G, D 16 with G,
+        # a bias slice too wide to stage; G None is the wrapper's choice.
+        for case, n, sq, skv, h, d, nb, wm, nm, g in [
+                ("ragged_skv200", 6, 64, 200, 4, 32, 2, True, 0, None),
+                ("fully_masked_rows", 8, 100, 100, 4, 32, 2, True, 3, None),
+                ("no_bias_no_mask", 4, 130, 130, 2, 32, 0, False, 0, None),
+                ("head_dim16", 4, 40, 40, 2, 16, 4, False, 0, None),
+                ("sq5_below_16", 4, 5, 9, 2, 32, 2, True, 1, 2),
+                ("rep1", 3, 70, 90, 2, 32, 3, True, 1, None),
+                ("rep16_g4_ragged", 16, 100, 70, 2, 32, 1, True, 2, 4),
+                ("head_dim16_g4", 8, 70, 130, 2, 16, 2, True, 1, 4),
+                ("bias_unstaged_skv600", 2, 20, 600, 1, 32, 1, True, 1, None)]:
             check_attn(case, qkv_layout(n, sq, skv, h, d), nb, wm, nm, dt,
-                       False)
+                       False, g)
+        check_attn("misaligned_views", misaligned_layout(4, 40, 2, 32), 2,
+                   True, 1, dt, False)
         # (case, B, I, J, K, C, D, fully masked rows): ragged against the
         # 16-pixel tile, I != J, MINI widths, C != D; the contiguous layout.
         for case, bsz, ni, nj, nk, c, d, nm in [
@@ -865,17 +997,28 @@ def kernel_phase(torch, timer, seen):
                 ("mini_widths", 2, 40, 30, 26, 16, 32, 1),
                 ("c16_d128", 1, 8, 20, 20, 16, 128, 0)]:
             check_opm(case, (bsz, ns, ni, c), nj, d, dt, False, nm)
-        # (case, N, Sq, Skv, H, D, B, mask, fully masked rows, dmask): the
-        # K5 grid, plus rep 1 (dbias from the dq sweep) and the mask's
-        # gradient.
-        for case, n, sq, skv, h, d, nb, wm, nm, dmask in [
-                ("ragged_skv200", 6, 64, 200, 4, 32, 2, True, 0, False),
-                ("fully_masked_rows", 8, 100, 100, 4, 32, 2, True, 3, True),
-                ("no_bias_no_mask", 4, 130, 130, 2, 32, 0, False, 0, False),
-                ("head_dim16", 4, 40, 40, 2, 16, 4, False, 0, False),
-                ("rep1_dbias_fused", 3, 70, 90, 2, 32, 3, True, 1, True)]:
+        # (case, N, Sq, Skv, H, D, B, mask, fully masked rows, dmask, G):
+        # the K5 cases, plus rep 1 (dbias from the dq sweep), the mask's
+        # gradient, and a (Sq x 64) slice too wide to stage.
+        for case, n, sq, skv, h, d, nb, wm, nm, dmask, g in [
+                ("ragged_skv200", 6, 64, 200, 4, 32, 2, True, 0, False, None),
+                ("fully_masked_rows", 8, 100, 100, 4, 32, 2, True, 3, True,
+                 None),
+                ("no_bias_no_mask", 4, 130, 130, 2, 32, 0, False, 0, False,
+                 None),
+                ("head_dim16", 4, 40, 40, 2, 16, 4, False, 0, False, None),
+                ("rep1_dbias_fused", 3, 70, 90, 2, 32, 3, True, 1, True, None),
+                ("sq5_below_16", 4, 5, 9, 2, 32, 2, True, 1, True, 2),
+                ("rep16_g4_ragged", 16, 100, 70, 2, 32, 1, True, 2, True, 4),
+                ("head_dim16_g4", 8, 70, 130, 2, 16, 2, True, 1, False, 4),
+                ("bias_unstaged_skv600", 2, 20, 600, 1, 32, 1, True, 1, True,
+                 None),
+                ("bias_unstaged_sq600", 2, 600, 40, 1, 32, 1, True, 1, True,
+                 None)]:
             check_attn_bwd(case, qkv_layout(n, sq, skv, h, d), nb, wm, nm,
-                           dt, False, dmask)
+                           dt, False, dmask, g, bitwise=(case == "rep16_g4_ragged"))
+        check_attn_bwd("misaligned_views", misaligned_layout(4, 40, 2, 32), 2,
+                       True, 1, dt, False, True)
         # (case, shape, keep shape, bias, keep dtype, rate)
         for case, shape, kshape, wb, kdt, rate in [
                 ("bias_no_dropout", (2, 9, 40, 64), None, True, None, 0.0),
@@ -1410,6 +1553,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "flags": _build.NVCC_FLAGS})
+    # The tensor-core attention kernels' registers, spills and shared
+    # memory (dynamic shared memory is sized at launch: see their sources).
+    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+        emit({"phase": "ptxas", "source": SOURCES[k][0],
+              "entries": ptxas_report(_build.BUILD_LOG.get(k, ""))})
 
     tree, batches = init_phase(torch)
     seen = survey_phase(torch, tree, batches)

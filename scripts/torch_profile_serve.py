@@ -5,6 +5,7 @@ on the GPU (PyTorch port).
     PYTHONPATH=src python scripts/torch_profile_serve.py [--n-res 256 384] [--n-seq 128]
     PYTHONPATH=src python scripts/torch_profile_serve.py --train [--n-res 256]
     PYTHONPATH=src python scripts/torch_profile_serve.py --plan attention-oracle
+    PYTHONPATH=src python scripts/torch_profile_serve.py --attention --n-res 256 384
 
 ``--plan`` names the ExecutionPlan the model runs under: a preset
 (default, oracle, interpret, triangle-oracle) or ``attention-oracle``,
@@ -18,6 +19,19 @@ warm-up pass, unprofiled, for its latency, then once under
 time of all kernels and its share of the profiled wall time (the device's
 busy share), the device time by group, and the PyTorch operators and the
 kernels that take the most device time.
+
+With ``--attention`` it profiles the flash-attention kernels alone instead
+(K5 ``flash_attention_cuda`` and K6 ``flash_attention_bwd_cuda``, bf16) at
+the main path's attention calls for each residue count: MSA row (N = s,
+S = r, the MSA heads, a pair bias shared by all s rows), MSA column (N = r,
+S = s, no bias) and triangle (N = r, S = r, the pair heads, a bias shared by
+all r rows), each with a key mask; q, k, v are column slices of one merged
+projection, as the model lays them out. For each call it prints the device
+time of every kernel the two wrappers launch, and that of
+``F.scaled_dot_product_attention`` forward and backward on the same inputs
+(bias and mask summed into one (N, H, S, S) mask), each the mean over 10
+launches with the 50 MB L2 cache flushed before each, and the wrappers'
+host time per call.
 
 With ``--train`` it does the same for one step of
 ``make_train_step(FastFold(FULL).loss_fn)`` (the port's own init, bf16,
@@ -60,13 +74,19 @@ from repro_torch.train import make_train_step
 from repro_torch.weights import (params_from_numpy, params_to_numpy,
                                  randomize_tree)
 
+# The port's kernels, matched by name (first match wins). The flash
+# attention's bf16 kernels run on tensor cores; its fp32 kernels (the
+# *_fp32_kernel forward and the dq/dkv/dbias sweeps) serve fp32 runs only.
 PORT_KERNELS = ("layer_norm_kernel", "bias_sigmoid_mul_kernel",
-                "flash_fwd_kernel", "triangle_mult_mma_kernel",
+                "flash_fwd_mma_kernel", "flash_fwd_fp32_kernel",
+                "triangle_mult_mma_kernel",
                 "outer_product_mean_mma_kernel", "bias_dropout_add_kernel",
                 "softmax_warp_kernel", "softmax_block_kernel",
                 # the flash-attention backward's passes
-                "delta_kernel", "dq_kernel", "dkv_kernel", "dbias_kernel",
-                "dmask_reduce_kernel")
+                "delta_bf16_kernel", "delta_kernel", "flash_bwd_dq_mma_kernel",
+                "flash_bwd_dkv_mma_kernel", "dbias_reduce_kernel",
+                "dmask_reduce_kernel", "dq_kernel", "dkv_kernel",
+                "dbias_kernel")
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone"}
@@ -185,6 +205,102 @@ PLANS = {**PRESETS, "attention-oracle": ExecutionPlan(
     kernels=KernelPolicy(attention="oracle"))}
 
 
+def _device_ms(fn, flush) -> dict[str, float]:
+    """Mean device time per call of each kernel ``fn`` launches, over 10
+    calls, each after a write of ``flush`` that evicts the L2 cache. The
+    flush's own kernels are profiled alone and subtracted."""
+    def tally(f):
+        for _ in range(3):
+            f()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                flush.zero_()
+                f()
+            torch.cuda.synchronize()
+        out = defaultdict(float)
+        for evt in prof.profiler.kineto_results.events():
+            if evt.device_type() == DeviceType.CUDA:
+                out[evt.name()[:80]] += (evt.end_ns() - evt.start_ns()) / 1e6 / 10
+        return out
+
+    with_fn, alone = tally(fn), tally(lambda: None)
+    return {k: ms - alone.get(k, 0.0) for k, ms in with_fn.items()
+            if ms - alone.get(k, 0.0) > 1e-4}
+
+
+def _host_us(fn) -> float:
+    """Host time of one call, the device left to run behind."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def attention_profile(n_res_list, n_seq: int, seed: int, smi: str) -> None:
+    """The device time of K5 and K6 and of SDPA at the main path's
+    attention calls (see the module docstring)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+
+    evo = FULL.evoformer
+    d = evo.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+    for r in n_res_list:
+        for site, n, s, h, shared in (("msa_row", n_seq, r, evo.msa_heads, True),
+                                      ("msa_col", r, n_seq, evo.msa_heads, False),
+                                      ("triangle", r, r, evo.pair_heads, True)):
+            qkv = torch.randn((n, s, 3 * h * d), generator=gen,
+                              device="cuda").to(bf16)
+            q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+                       for i in range(3))
+            bias = (torch.randn((1, h, s, s), generator=gen, device="cuda")
+                    .to(bf16) if shared else None)
+            keep = torch.rand((n, s), generator=gen, device="cuda") < 0.9
+            mask = torch.where(keep, 0.0, -1e9).float()
+            scale = d ** -0.5
+            out, lse = flash_attention_cuda(q, k, v, bias, mask, scale)
+            do = torch.randn(out.shape, generator=gen, device="cuda").to(bf16)
+            qb, kb, vb = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            am = mask.to(bf16).view(n, 1, 1, s)
+            if shared:
+                am = (bias + am).reshape(n, h, s, s)
+            am = am.detach().requires_grad_(shared)
+            sdpa_out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=am,
+                                                      scale=scale)
+            inputs = [qb, kb, vb] + ([am] if shared else [])
+            gb = do.transpose(1, 2).contiguous()
+            # The forward on inputs that need no gradient, as the model's
+            # forward runs (PyTorch then picks another backend than with
+            # a mask that needs one).
+            fwd_in = [t.detach() for t in (qb, kb, vb, am)]
+            calls = {
+                "k5": lambda: flash_attention_cuda(q, k, v, bias, mask, scale),
+                "k6": lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                       bias, mask, scale),
+                "sdpa": lambda: F.scaled_dot_product_attention(
+                    *fwd_in[:3], attn_mask=fwd_in[3], scale=scale),
+                "sdpa_backward": lambda: torch.autograd.grad(
+                    sdpa_out, inputs, gb, retain_graph=True)}
+            row = {"device": smi, "site": site, "n_res": r, "n_seq": n_seq,
+                   "shape": [n, s, s, h, d], "dtype": "bfloat16"}
+            for name, fn in calls.items():
+                per_kernel = _device_ms(fn, flush)
+                row[f"{name}_device_ms"] = sum(per_kernel.values())
+                row[f"{name}_kernels_ms"] = per_kernel
+                row[f"{name}_host_us"] = _host_us(fn)
+            print(json.dumps(row), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-res", type=int, nargs="+", default=[256])
@@ -193,12 +309,20 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of a request")
+    ap.add_argument("--attention", action="store_true",
+                    help="profile the flash-attention kernels and SDPA alone")
     ap.add_argument("--plan", choices=sorted(PLANS), default="default",
                     help="the ExecutionPlan the model runs under")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_serve: needs a CUDA device")
     _build.build_all()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    if args.attention:
+        attention_profile(args.n_res, args.n_seq, args.seed, smi)
+        return
     ff = FastFold(FULL, plan=PLANS[args.plan])
     if args.train:
         params = ff.init(seed=args.seed)
@@ -206,9 +330,6 @@ def main() -> None:
         tree = randomize_tree(params_to_numpy(ff.init(seed=args.seed)),
                               args.seed + 1)
         params = params_from_numpy(tree, device="cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     for n_res in args.n_res:
         batch = next(protein_batches(batch=1, n_seq=args.n_seq, n_res=n_res,
                                      seed=args.seed + 2)).as_dict()

@@ -26,10 +26,13 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills; the build keeps that report in BUILD_LOG.
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-lineinfo"]
+                           "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 LAUNCHES: Counter = Counter()
+BUILD_LOG: dict[str, str] = {}   # kernel name -> nvcc's output, for this process's builds
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -50,7 +53,8 @@ SIGNATURES = {
         _c_void_p, _c_void_p,                         # out, lse
         _c_ll, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,     # q/k/v strides (n, s)
         _c_int, _c_int, _c_int, _c_int, _c_int,       # N, Sq, Skv, H, D
-        _c_int, _c_float, _c_int, _c_void_p]),        # rep, scale, dtype, stream
+        _c_int, _c_int, _c_float, _c_int,             # rep, groups, scale, dtype
+        _c_void_p]),                                  # stream
     "triangle_mult": ("triangle_mult_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # a_lin, ga, mask, b
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # gamma, beta, w_out, b_out
@@ -70,12 +74,13 @@ SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,              # out, dout, lse
         _c_void_p, _c_void_p,                         # bias, mask (or NULL)
         _c_void_p, _c_void_p, _c_void_p,              # dq, dk, dv
-        _c_void_p, _c_void_p,                         # dbias, dmask (or NULL)
+        _c_void_p, _c_void_p, _c_void_p,              # dbias, dbias partials, dmask
         _c_void_p, _c_void_p,                         # delta, dmask_h scratch
         _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,            # q/k/v/out/dout strides
         _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,            # (n, s)
         _c_int, _c_int, _c_int, _c_int, _c_int,       # N, Sq, Skv, H, D
-        _c_int, _c_float, _c_int, _c_void_p]),        # rep, scale, dtype, stream
+        _c_int, _c_int, _c_float, _c_int,             # rep, groups, scale, dtype
+        _c_void_p]),                                  # stream
     "bias_dropout_add": ("bias_dropout_add_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, b, residual, keep
         _c_void_p,                                    # out
@@ -99,6 +104,13 @@ _entries: dict = {}   # name -> typed ctypes function; keeps its library loaded
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The cudaStream_t of the current stream on ``t``'s device, as an int:
+    the raw handle, without building a ``torch.cuda.Stream`` (a few
+    microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def find_nvcc() -> str:
@@ -143,6 +155,7 @@ def build_all() -> dict[str, Path]:
         errors = []
         for n, proc in procs.items():
             out, _ = proc.communicate()
+            BUILD_LOG[n] = out
             if proc.returncode != 0:
                 errors.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n"
                               f"{out}")

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.exec.plan import ExecutionPlan, KernelPolicy, use_plan
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+from repro_torch.kernels.flash_attention import (copy_for_kernel,
+                                                 flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
 from repro_torch.kernels.fused_softmax import fused_softmax_cuda
@@ -61,16 +62,21 @@ def test_bias_sigmoid_mul_kernel(gen, shape, dtype, tol):
     _close(got, ref.bias_sigmoid_mul_ref(g, bg, v), tol)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,sq,skv,h,d,nb,bias,mask", [
-    (6, 40, 40, 2, 32, 2, True, True),      # rep 3
-    (3, 20, 70, 2, 16, 1, True, True),      # ragged last KV tile
-    (2, 130, 130, 1, 32, 1, False, False),  # ragged q tile, no bias/mask
-    (4, 12, 12, 2, 16, 4, False, True),
-])
-def test_flash_attention_kernel(gen, n, sq, skv, h, d, nb, bias, mask, dtype,
-                                tol):
+# (N, Sq, Skv, H, D, B, bias, mask, G): G None takes the wrapper's choice.
+FLASH_CASES = [
+    (6, 40, 40, 2, 32, 2, True, True, None),      # rep 3
+    (3, 20, 70, 2, 16, 1, True, True, None),      # ragged last KV tile
+    (2, 130, 130, 1, 32, 1, False, False, None),  # ragged q tile, no bias/mask
+    (4, 12, 12, 2, 16, 4, False, True, None),
+    (16, 100, 70, 2, 32, 1, True, True, 4),       # rep 16 > G 4; Sq, Skv ragged
+    (4, 5, 9, 2, 32, 2, True, True, 2),           # Sq < 16
+    (3, 33, 45, 2, 32, 3, True, True, None),      # rep 1
+    (8, 70, 130, 2, 16, 2, True, True, 4),        # D 16 with G 4
+    (2, 20, 600, 1, 32, 1, True, True, None),     # bias slice too wide to stage
+]
+
+
+def _flash_inputs(gen, n, sq, skv, h, d, nb, bias, mask, dtype):
     qkv = torch.randn((n, max(sq, skv), 3 * h * d), generator=gen,
                       device="cuda").to(dtype)
     q = qkv[:, :sq, :h * d].unflatten(-1, (h, d))          # strided views
@@ -83,8 +89,17 @@ def test_flash_attention_kernel(gen, n, sq, skv, h, d, nb, bias, mask, dtype,
         keep = torch.rand((n, skv), generator=gen, device="cuda") < 0.8
         keep[0] = False                     # one fully masked row
         m = torch.where(keep, 0.0, -1e9).float()
+    return q, k, v, b, m
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,sq,skv,h,d,nb,bias,mask,groups", FLASH_CASES)
+def test_flash_attention_kernel(gen, n, sq, skv, h, d, nb, bias, mask, groups,
+                                dtype, tol):
+    q, k, v, b, m = _flash_inputs(gen, n, sq, skv, h, d, nb, bias, mask, dtype)
     _build.reset_launches()
-    out, lse = flash_attention_cuda(q, k, v, b, m, d ** -0.5)
+    out, lse = flash_attention_cuda(q, k, v, b, m, d ** -0.5, groups)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention_fwd"] == 1
     want, want_lse = ref.attention_ref(q, k, v, b, m, d ** -0.5)
@@ -94,36 +109,21 @@ def test_flash_attention_kernel(gen, n, sq, skv, h, d, nb, bias, mask, dtype,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,sq,skv,h,d,nb,bias,mask", [
-    (6, 40, 40, 2, 32, 2, True, True),      # rep 3
-    (3, 20, 70, 2, 16, 1, True, True),      # ragged last KV tile
-    (2, 130, 130, 1, 32, 1, False, False),  # ragged q tile, no bias/mask
-    (4, 12, 12, 2, 16, 4, False, True),
-    (3, 33, 45, 2, 32, 3, True, True),      # rep 1: dbias from the dq sweep
+@pytest.mark.parametrize("n,sq,skv,h,d,nb,bias,mask,groups", FLASH_CASES + [
+    (2, 600, 40, 1, 32, 1, True, True, None),     # dk/dv slice too wide
 ])
 def test_flash_attention_bwd_kernel(gen, n, sq, skv, h, d, nb, bias, mask,
-                                    dtype, tol):
+                                    groups, dtype, tol):
     """The backward against attention_bwd_ref on the forward kernel's own
     (out, lse), q/k/v as strided views, a fully masked row, the mask's
     gradient asked for."""
-    qkv = torch.randn((n, max(sq, skv), 3 * h * d), generator=gen,
-                      device="cuda").to(dtype)
-    q = qkv[:, :sq, :h * d].unflatten(-1, (h, d))
-    k = qkv[:, :skv, h * d:2 * h * d].unflatten(-1, (h, d))
-    v = qkv[:, :skv, 2 * h * d:].unflatten(-1, (h, d))
-    b = (torch.randn((nb, h, sq, skv), generator=gen, device="cuda").to(dtype)
-         if bias else None)
-    m = None
-    if mask:
-        keep = torch.rand((n, skv), generator=gen, device="cuda") < 0.8
-        keep[0] = False                     # one fully masked row
-        m = torch.where(keep, 0.0, -1e9).float()
+    q, k, v, b, m = _flash_inputs(gen, n, sq, skv, h, d, nb, bias, mask, dtype)
     scale = d ** -0.5
     out, lse = flash_attention_cuda(q, k, v, b, m, scale)
     do = torch.randn((n, sq, h, d), generator=gen, device="cuda").to(dtype)
     _build.reset_launches()
     got = flash_attention_bwd_cuda(q, k, v, out, do, lse, b, m, scale,
-                                   need_dmask=True)
+                                   need_dmask=True, groups=groups)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention_bwd"] == 1
     want = ref.attention_bwd_ref(q, k, v, do, out, lse, b, m, scale)
@@ -132,6 +132,48 @@ def test_flash_attention_bwd_kernel(gen, n, sq, skv, h, d, nb, bias, mask,
         if g is not None:
             assert g.dtype == w.dtype and g.shape == w.shape
             _close(g, w, tol)
+
+
+@pytest.mark.parametrize("groups", [None, 1, 4])
+def test_flash_attention_bwd_kernel_is_deterministic(gen, groups):
+    """Two bf16 backward runs on the same inputs give the same bits: no
+    floating-point atomics, every sum in a fixed order."""
+    q, k, v, b, m = _flash_inputs(gen, 16, 100, 130, 2, 32, 2, True, True,
+                                  torch.bfloat16)
+    out, lse = flash_attention_cuda(q, k, v, b, m, 0.2)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    runs = [flash_attention_bwd_cuda(q, k, v, out, do, lse, b, m, 0.2,
+                                     need_dmask=True, groups=groups)
+            for _ in range(2)]
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+def test_flash_attention_copies_misaligned_views(gen):
+    """bf16 views whose data pointer or N/S stride is not a multiple of 16
+    bytes are copied by the wrappers (copy_for_kernel), then run the
+    kernels, with the plain version's results."""
+    n, s, h, d = 4, 40, 2, 32
+    buf = torch.randn(n * s * (3 * h * d + 2) + 8, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    stride = (s * (3 * h * d + 2), 3 * h * d + 2, d, 1)   # S stride 194
+    q, k, v = (buf[1 + i * h * d:].as_strided((n, s, h, d), stride)
+               for i in range(3))
+    assert all(copy_for_kernel(t) for t in (q, k, v))
+    b = torch.randn((2, h, s, s), generator=gen, device="cuda").to(torch.bfloat16)
+    _build.reset_launches()
+    out, lse = flash_attention_cuda(q, k, v, b, None, 0.2)
+    want, want_lse = ref.attention_ref(q, k, v, b, None, 0.2)
+    _close(out, want, 2e-2)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    got = flash_attention_bwd_cuda(q, k, v, out, do, lse, b, None, 0.2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_fwd"] == 1
+    assert _build.LAUNCHES["flash_attention_bwd"] == 1
+    for g, w in zip(got, ref.attention_bwd_ref(q, k, v, do, out, lse, b, None,
+                                               0.2)):
+        if w is not None:
+            _close(g, w, 2e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
