@@ -14,7 +14,8 @@ Phases, each printing JSON lines:
                materializes its scores and runs the fused softmax);
   4. kernels — each kernel against its plain PyTorch version on the card, at
                every surveyed call and at edge cases, in fp32 and bf16, with
-               the stated tolerances; kernel, plain and library-call times
+               the stated tolerances (and, for K4 to K7, controls the
+               tolerance must reject); kernel, plain and library-call times
                (CUDA events, cold L2, median of 20 runs) beside the bound for
                the same work, where the library call of the triangle and OPM
                kernels is the cuBLAS composition the port ran before them,
@@ -232,13 +233,22 @@ def _entry_name(mangled: str) -> str:
     end, _, name = min(found)
     rest = mangled[end:]
     args = []
-    if rest.startswith("If"):
-        args.append("float")
-    elif rest.startswith("I13__nv_bfloat16"):
-        args.append("bf16")
-    args += re.findall(r"Li(\d+)E", rest[:rest.find("EE") + 2] if "EE" in rest
-                       else "")
+    i = 1 if rest.startswith("I") else len(rest)
+    while i < len(rest) and rest[i] != "E":
+        m = re.match(r"13__nv_bfloat16|L[ib](\d+)E|[fhix]", rest[i:])
+        if m is None:
+            break
+        tok = m.group(0)
+        args.append(_TEMPLATE_TYPES.get(tok) or (
+            ("false", "true")[int(m.group(1))] if tok.startswith("Lb")
+            else m.group(1)))
+        i += len(tok)
     return f"{name}<{', '.join(args)}>" if args else name
+
+
+# Itanium codes of the template arguments the kernels use.
+_TEMPLATE_TYPES = {"13__nv_bfloat16": "bf16", "f": "float", "h": "uint8",
+                   "i": "int", "x": "int64"}
 
 
 def ptxas_report(log: str) -> list[dict]:
@@ -633,6 +643,23 @@ def kernel_phase(torch, timer, seen):
             if stats[f"{name}_max_rel_err"] > STATS_TOL[dt]:
                 fail(f"triangle_mult {case} {dt}: {name} error "
                      f"{stats[f'{name}_max_rel_err']:.3g}")
+        # Controls the limits must reject: the plain version with the gate
+        # left out (sigmoid(30) is 1 in fp32), with the mask left out, and
+        # the LN statistics of the fully masked rows written as 0 (their
+        # output alone does not show it: y is beta either way).
+        controls = {
+            "gate left out": ref.triangle_mult_ref(
+                a_lin, torch.full_like(ga, 30.0), *args[2:])[:1],
+            "mask left out": ref.triangle_mult_ref(
+                a_lin, ga, torch.ones_like(mask), *args[3:])[:1]}
+        if masked_rows:
+            zeroed = want_inv.clone()
+            zeroed[:, :masked_rows] = 0.0
+            controls["masked rows' LN statistics written as 0"] = (
+                want, want_mean, zeroed)
+        control_err = controls_rejected(
+            "triangle_mult", case, dt, controls, (want, want_mean, want_inv))
+        del controls
         timing = None
         if main:
             # The library yardstick is the cuBLAS composition the port ran
@@ -660,7 +687,8 @@ def kernel_phase(torch, timer, seen):
         record("triangle_mult", case, dt, (bsz, ni, nj, nk, c, d), out, want,
                timing, {"main_path": main, "a_stride": list(a_stride),
                         "mask_stride": list(m_stride),
-                        "fully_masked_rows": masked_rows, **stats})
+                        "fully_masked_rows": masked_rows, **stats,
+                        "control_rel_err": control_err})
 
     # --- K8 fused outer-product-mean. a and b are masked by the MSA mask,
     # which also masks n_masked MSA rows and the last residue entirely.
@@ -991,6 +1019,13 @@ def kernel_phase(torch, timer, seen):
             check_tri(case, (bsz, ni, nk, c),
                       (ni * nk * c, nk * c, c, 1), (ni * nk, nk, 1), nj, d,
                       dt, False, nm)
+        # I, J and K all off the tiles, B = 2, laid out as the incoming
+        # update lays them out: a_lin and ga column halves of a merged
+        # projection, the mask a transposed view.
+        bsz, ni, nj, nk, c = 2, 17, 130, 200, 128
+        check_tri("off_tile_incoming_b2", (bsz, ni, nk, c),
+                  (ni * nk * 2 * c, nk * 2 * c, 2 * c, 1), (ni * nk, 1, ni),
+                  nj, c, dt, False, 2)
         # (case, B, S, I, J, C, D, fully masked MSA rows)
         for case, bsz, ns, ni, nj, c, d, nm in [
                 ("ragged_sij", 1, 37, 21, 19, 32, 128, 2),
@@ -1553,9 +1588,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "flags": _build.NVCC_FLAGS})
-    # The tensor-core attention kernels' registers, spills and shared
-    # memory (dynamic shared memory is sized at launch: see their sources).
-    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+    # The tensor-core attention kernels', K7's and K3's registers, spills
+    # and static shared memory (dynamic shared memory is sized at launch:
+    # see their sources).
+    for k in ("flash_attention_fwd", "flash_attention_bwd", "triangle_mult",
+              "bias_dropout_add"):
         emit({"phase": "ptxas", "source": SOURCES[k][0],
               "entries": ptxas_report(_build.BUILD_LOG.get(k, ""))})
 

@@ -6,6 +6,7 @@ on the GPU (PyTorch port).
     PYTHONPATH=src python scripts/torch_profile_serve.py --train [--n-res 256]
     PYTHONPATH=src python scripts/torch_profile_serve.py --plan attention-oracle
     PYTHONPATH=src python scripts/torch_profile_serve.py --attention --n-res 256 384
+    PYTHONPATH=src python scripts/torch_profile_serve.py --triangle-dropout --n-res 256 384
 
 ``--plan`` names the ExecutionPlan the model runs under: a preset
 (default, oracle, interpret, triangle-oracle) or ``attention-oracle``,
@@ -29,9 +30,24 @@ all r rows), each with a key mask; q, k, v are column slices of one merged
 projection, as the model lays them out. For each call it prints the device
 time of every kernel the two wrappers launch, and that of
 ``F.scaled_dot_product_attention`` forward and backward on the same inputs
-(bias and mask summed into one (N, H, S, S) mask), each the mean over 10
-launches with the 50 MB L2 cache flushed before each, and the wrappers'
-host time per call.
+(bias and mask summed into one (N, H, S, S) mask), each over 20 launches
+with the 50 MB L2 cache flushed before each (see ``_device_ms``), the
+least time for the work of K5 and K6, and the wrappers' host time per
+call.
+
+With ``--triangle-dropout`` it profiles K7 ``fused_triangle_cuda`` and
+K3 ``bias_dropout_add_cuda`` alone, bf16. K7 at the main path's calls for
+each residue count (outgoing and incoming: a_lin and ga column halves of
+the merged (1, r, r, 2C) projection, the incoming mask a transposed view),
+with the device time of each of its kernels (the pre-pass and the main
+kernel), that of the main kernel at K = 0 (its k loop empty: the
+epilogue, with the pre-pass's w_out conversion), the host time of a call,
+and the cuBLAS composition the port ran before it. K3 at the training
+step's dropout sites (r the first residue count, s the MSA depth, the
+reduced fp32 keep mask of each distinct shape), beside ``torch.addcmul``.
+Each is timed after the L2 flush and, without it, on cold inputs: the
+calls cycle through copies of their inputs that together hold 200 MB or
+more.
 
 With ``--train`` it does the same for one step of
 ``make_train_step(FastFold(FULL).loss_fn)`` (the port's own init, bf16,
@@ -50,13 +66,15 @@ side: the CPU events' own kernel lists can name one kernel twice when ids
 collide. Matrix products are the kernels of ``aten::mm``/``bmm``/
 ``addmm``/..., copies and casts those of ``aten::copy_``/``_to_copy``/
 ``clone``. The port's own kernels are launched through ctypes, outside any
-operator, and are grouped by their names.
+operator, and are grouped by the port kernel (K1..K8) their names belong
+to (``PORT_KERNELS``).
 Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 from collections import defaultdict
@@ -74,19 +92,34 @@ from repro_torch.train import make_train_step
 from repro_torch.weights import (params_from_numpy, params_to_numpy,
                                  randomize_tree)
 
-# The port's kernels, matched by name (first match wins). The flash
-# attention's bf16 kernels run on tensor cores; its fp32 kernels (the
-# *_fp32_kernel forward and the dq/dkv/dbias sweeps) serve fp32 runs only.
-PORT_KERNELS = ("layer_norm_kernel", "bias_sigmoid_mul_kernel",
-                "flash_fwd_mma_kernel", "flash_fwd_fp32_kernel",
-                "triangle_mult_mma_kernel",
-                "outer_product_mean_mma_kernel", "bias_dropout_add_kernel",
-                "softmax_warp_kernel", "softmax_block_kernel",
-                # the flash-attention backward's passes
-                "delta_bf16_kernel", "delta_kernel", "flash_bwd_dq_mma_kernel",
-                "flash_bwd_dkv_mma_kernel", "dbias_reduce_kernel",
-                "dmask_reduce_kernel", "dq_kernel", "dkv_kernel",
-                "dbias_kernel")
+# The port's kernels, matched by name (first match wins), and the port
+# kernel each belongs to: a device-time group per port kernel, whatever
+# number of CUDA kernels its wrapper launches. The flash attention's bf16
+# kernels run on tensor cores; its fp32 kernels (the *_fp32_kernel forward
+# and the dq/dkv/dbias sweeps) serve fp32 runs only, as does K7's FMA
+# kernel.
+PORT_KERNELS = {
+    "layer_norm_kernel": "K1 layer_norm",
+    "bias_sigmoid_mul_kernel": "K2 bias_sigmoid_mul",
+    "bias_dropout_add_kernel": "K3 bias_dropout_add",
+    "softmax_warp_kernel": "K4 fused_softmax",
+    "softmax_block_kernel": "K4 fused_softmax",
+    "flash_fwd_mma_kernel": "K5 flash_attention_fwd",
+    "flash_fwd_fp32_kernel": "K5 flash_attention_fwd",
+    "delta_bf16_kernel": "K6 flash_attention_bwd",
+    "delta_kernel": "K6 flash_attention_bwd",
+    "flash_bwd_dq_mma_kernel": "K6 flash_attention_bwd",
+    "flash_bwd_dkv_mma_kernel": "K6 flash_attention_bwd",
+    "dbias_reduce_kernel": "K6 flash_attention_bwd",
+    "dmask_reduce_kernel": "K6 flash_attention_bwd",
+    "dq_kernel": "K6 flash_attention_bwd",
+    "dkv_kernel": "K6 flash_attention_bwd",
+    "dbias_kernel": "K6 flash_attention_bwd",
+    "triangle_prepass_kernel": "K7 triangle_mult",
+    "triangle_mult_mma_kernel": "K7 triangle_mult",
+    "triangle_mult_fma_kernel": "K7 triangle_mult",
+    "outer_product_mean_mma_kernel": "K8 outer_product_mean",
+}
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::clone"}
@@ -110,7 +143,8 @@ def _aten_op(evt):
 
 
 def _port_kernel(name: str):
-    return next((k for k in PORT_KERNELS if k in name), None)
+    """The port kernel (K1..K8) a CUDA kernel's name belongs to, or None."""
+    return next((g for k, g in PORT_KERNELS.items() if k in name), None)
 
 
 def device_time(prof):
@@ -205,28 +239,36 @@ PLANS = {**PRESETS, "attention-oracle": ExecutionPlan(
     kernels=KernelPolicy(attention="oracle"))}
 
 
-def _device_ms(fn, flush) -> dict[str, float]:
-    """Mean device time per call of each kernel ``fn`` launches, over 10
-    calls, each after a write of ``flush`` that evicts the L2 cache. The
-    flush's own kernels are profiled alone and subtracted."""
+def _device_ms(fn, flush, reps: int = 20) -> dict[str, float]:
+    """Device time per call of each kernel ``fn`` launches: over ``reps``
+    calls, each after a write of ``flush`` that evicts the L2 cache (none
+    where ``flush`` is None), the median duration of each kernel (by name)
+    times its launches per call (for a name launched for different work
+    within a call, as the elementwise kernels of a composition are, that
+    stands for their sum). The flush's own kernels are left out."""
     def tally(f):
         for _ in range(3):
             f()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                flush.zero_()
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
                 f()
             torch.cuda.synchronize()
-        out = defaultdict(float)
+        out = defaultdict(list)
         for evt in prof.profiler.kineto_results.events():
             if evt.device_type() == DeviceType.CUDA:
-                out[evt.name()[:80]] += (evt.end_ns() - evt.start_ns()) / 1e6 / 10
+                out[evt.name()[:80]].append((evt.end_ns() - evt.start_ns()) / 1e6)
         return out
 
-    with_fn, alone = tally(fn), tally(lambda: None)
-    return {k: ms - alone.get(k, 0.0) for k, ms in with_fn.items()
-            if ms - alone.get(k, 0.0) > 1e-4}
+    flush_kernels = set(tally(lambda: None))
+    return {k: statistics.median(ms) * len(ms) / reps
+            for k, ms in tally(fn).items() if k not in flush_kernels}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def _host_us(fn) -> float:
@@ -293,12 +335,145 @@ def attention_profile(n_res_list, n_seq: int, seed: int, smi: str) -> None:
                     sdpa_out, inputs, gb, retain_graph=True)}
             row = {"device": smi, "site": site, "n_res": r, "n_seq": n_seq,
                    "shape": [n, s, s, h, d], "dtype": "bfloat16"}
+            # The least time for each kernel's work, as chip_smoke.py
+            # counts it: each input read and each output written once
+            # (the q/k/v views by their own size), and 4 (forward) or 10
+            # (backward: five S x S x D products) N H S^2 D operations, at
+            # 3.35 TB/s or 989 TFLOP/s, the larger.
+            views = nbytes(q, k, v)
+            extras = nbytes(bias, mask)
+            fwd_bytes = views + extras + nbytes(out, lse)
+            bwd_bytes = 2 * views + extras + nbytes(out, do, lse, bias)
+            for name, nbytes_, ops in (("k5", fwd_bytes, 4), ("k6", bwd_bytes, 10)):
+                row[f"{name}_bound_ms"] = max(
+                    nbytes_ / 3.35e12, ops * n * h * s * s * d / 989e12) * 1e3
             for name, fn in calls.items():
                 per_kernel = _device_ms(fn, flush)
                 row[f"{name}_device_ms"] = sum(per_kernel.values())
                 row[f"{name}_kernels_ms"] = per_kernel
                 row[f"{name}_host_us"] = _host_us(fn)
             print(json.dumps(row), flush=True)
+
+
+def triangle_dropout_profile(n_res_list, n_seq: int, seed: int,
+                             smi: str) -> None:
+    """K7 and K3 alone at the main path's calls (see the module docstring):
+    per call the device time of every kernel the wrapper launches, K7's
+    epilogue alone (the main kernel at K = 0: its k loop empty), the host
+    time of a call, and the library yardstick's device and host time."""
+    import torch.nn.functional as F
+    from repro_torch.core.evoformer import DROPOUT_SITES
+    from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
+    from repro_torch.kernels.triangle import fused_triangle_cuda
+
+    evo = FULL.evoformer
+    c, d = evo.tri_mult_dim, evo.d_pair
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+
+    def randn(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def timed(name, fn, make_args, row):
+        """``fn(*args)`` timed two ways: after the L2 flush, as everywhere
+        in this script, and on cold inputs without a flush, the calls
+        cycling through copies of the inputs (``make_args()`` each) that
+        together hold 200 MB or more, 4x the L2. A written flush leaves
+        dirty lines that the timed call writes back, so a memory-bound
+        call pays for more than its own bytes; cycling copies charges each
+        call its own reads and, in the steady state, the write-back of one
+        earlier call's output: the bytes its bound counts."""
+        sets = [make_args()]
+        size = sum(t.numel() * t.element_size() for t in sets[0]
+                   if isinstance(t, torch.Tensor))
+        while len(sets) < max(2, -(-(200 << 20) // size)):
+            sets.append(make_args())
+        per_kernel = _device_ms(lambda: fn(*sets[0]), flush)
+        row[f"{name}_device_ms"] = sum(per_kernel.values())
+        row[f"{name}_kernels_ms"] = per_kernel
+        turn = iter(range(1 << 62))
+        row[f"{name}_cold_device_ms"] = sum(_device_ms(
+            lambda: fn(*sets[next(turn) % len(sets)]), None).values())
+        row[f"{name}_cold_copies"] = len(sets)
+        row[f"{name}_host_us"] = _host_us(lambda: fn(*sets[0]))
+
+    for r in n_res_list:
+        for site in ("outgoing", "incoming"):
+            def make_args():
+                # a_lin and ga: column halves of the merged (1, r, r, 2C)
+                # projections; the incoming update's mask is a transposed
+                # view.
+                ab, g = randn((1, r, r, 2 * c)), randn((1, r, r, 2 * c), 2.0)
+                keep = (torch.rand((1, r, r), generator=gen, device="cuda")
+                        < 0.9).float()
+                mask = keep.transpose(1, 2) if site == "incoming" else keep
+                return (ab[..., :c], g[..., :c], mask, randn((1, r, r, c)),
+                        1 + randn((c,), 0.1, torch.float32),
+                        randn((c,), 0.1, torch.float32),
+                        randn((c, d), c ** -0.5, torch.float32),
+                        randn((d,), 0.1, torch.float32),
+                        randn((1, r, r, d), 2.0),
+                        randn((d,), 1.0, torch.float32))
+
+            def make_empty():
+                # K = 0: the same call with its k loop empty (the epilogue).
+                args = make_args()
+                return (args[0][:, :, :0], args[1][:, :, :0],
+                        args[2][:, :, :0],
+                        torch.empty((1, r, 0, c), dtype=bf16, device="cuda"),
+                        *args[4:])
+
+            def make_composition_args():
+                # The weights cast beforehand, outside the timed call.
+                (a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
+                 g_bias) = make_args()
+                return (a_lin, ga, mask, b_full, gamma.to(bf16),
+                        beta.to(bf16), w_out.t().contiguous().to(bf16),
+                        b_out.to(bf16), g_lin, g_bias.to(bf16))
+
+            def composition(a_lin, ga, mask, b_full, g_l, be_l, w_t, bo_l,
+                            g_lin, gb_l):
+                a = torch.sigmoid(ga) * a_lin * mask[..., None].to(bf16)
+                o = torch.einsum("bikc,bjkc->bijc", a, b_full)
+                y = F.layer_norm(o, (c,), g_l, be_l)
+                return torch.sigmoid(g_lin + gb_l) * F.linear(y, w_t, bo_l)
+
+            row = {"device": smi, "kernel": "triangle_mult", "site": site,
+                   "n_res": r, "shape": [1, r, r, r, c, d], "dtype": "bfloat16"}
+            timed("k7", fused_triangle_cuda, make_args, row)
+            timed("k7_k0_epilogue", fused_triangle_cuda, make_empty, row)
+            timed("composition", composition, make_composition_args, row)
+            print(json.dumps(row), flush=True)
+    # K3 at the training crop's dropout sites (r = 256 or the first given),
+    # each with its reduced fp32 mask as the main path draws it; the
+    # library yardstick is torch.addcmul(residual, x, keep, value=1/(1-rate)).
+    r = n_res_list[0]
+    rates = {"msa": evo.dropout_msa, "pair": evo.dropout_pair}
+    done = set()
+    for site, axis in DROPOUT_SITES.items():
+        shape = ((1, n_seq, r, evo.d_msa) if site == "msa_row"
+                 else (1, r, r, evo.d_pair))
+        kshape = tuple(1 if i == axis else n for i, n in enumerate(shape))
+        if kshape in done:
+            continue
+        done.add(kshape)
+        rate = rates["msa" if site == "msa_row" else "pair"]
+
+        def make_args():
+            keep = (torch.rand(kshape, generator=gen, device="cuda")
+                    < 1 - rate).float()
+            return randn(shape), randn(shape), keep, keep.to(bf16)
+
+        row = {"device": smi, "kernel": "bias_dropout_add", "site": site,
+               "shape": list(shape), "keep_shape": list(kshape),
+               "rate": rate, "dtype": "bfloat16"}
+        timed("k3", lambda x, res, keep, _: bias_dropout_add_cuda(
+            x, None, res, keep, rate), make_args, row)
+        timed("addcmul", lambda x, res, _, keep_l: torch.addcmul(
+            res, x, keep_l, value=1.0 / (1.0 - rate)), make_args, row)
+        print(json.dumps(row), flush=True)
 
 
 def main() -> None:
@@ -311,6 +486,9 @@ def main() -> None:
                     help="profile one training step instead of a request")
     ap.add_argument("--attention", action="store_true",
                     help="profile the flash-attention kernels and SDPA alone")
+    ap.add_argument("--triangle-dropout", action="store_true",
+                    help="profile the triangle (K7) and bias-dropout-add "
+                         "(K3) kernels alone")
     ap.add_argument("--plan", choices=sorted(PLANS), default="default",
                     help="the ExecutionPlan the model runs under")
     args = ap.parse_args()
@@ -322,6 +500,9 @@ def main() -> None:
                          text=True, timeout=60).stdout.strip()
     if args.attention:
         attention_profile(args.n_res, args.n_seq, args.seed, smi)
+        return
+    if args.triangle_dropout:
+        triangle_dropout_profile(args.n_res, args.n_seq, args.seed, smi)
         return
     ff = FastFold(FULL, plan=PLANS[args.plan])
     if args.train:

@@ -60,6 +60,7 @@ SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # gamma, beta, w_out, b_out
         _c_void_p, _c_void_p,                         # g_lin, g_bias
         _c_void_p, _c_void_p, _c_void_p,              # out, mean, inv
+        _c_void_p, _c_ll,                             # bf16 workspace, its numel
         _c_ll, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,     # a_lin, ga strides (b, i, k)
         _c_ll, _c_ll, _c_ll,                          # mask strides (b, i, k)
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,   # B, I, J, K, C, D
@@ -84,9 +85,8 @@ SIGNATURES = {
     "bias_dropout_add": ("bias_dropout_add_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, b, residual, keep
         _c_void_p,                                    # out
-        _c_ll, _c_int, _c_int, _c_int,                # d0, d1, d2, C
-        _c_ll, _c_ll, _c_ll, _c_ll,                   # keep strides (0,1,2,C)
-        _c_float, _c_int, _c_int, _c_void_p]),        # 1-rate, dtype, keep dtype, stream
+        _c_void_p,                                    # geometry: 10 long longs
+        _c_float, _c_void_p]),                        # 1-rate, stream
     "fused_softmax": ("fused_softmax_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, bias, mask (or NULL), out
         _c_ll, _c_ll, _c_int, _c_int,                 # rows, H*R, rep, C

@@ -8,6 +8,8 @@ to the plain versions.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -42,6 +44,70 @@ def bias_sigmoid_mul_cuda(g: torch.Tensor, bg: torch.Tensor,
 
 
 KEEP_DTYPE_CODES = {torch.float32: 0, torch.uint8: 1, torch.bool: 1}
+# The largest y and z extents of the kernel's grid, which hold d1 and d0.
+_MAX_D01 = 65535
+
+
+def broadcast_strides(shape, keep_shape, keep_stride) -> tuple[int, ...]:
+    """The strides of a mask of ``keep_shape`` and ``keep_stride`` broadcast
+    to ``shape``, as ``keep.expand(shape).stride()`` gives them (0 along an
+    axis of size 1 that grows, and along every leading axis the mask
+    lacks), without building the view. Raises ValueError where the mask
+    does not broadcast."""
+    lead = len(shape) - len(keep_shape)
+    if lead < 0:
+        raise ValueError(f"keep {tuple(keep_shape)} has more dims than "
+                         f"{tuple(shape)}: it does not broadcast")
+    out = [0] * lead
+    for n, k, st in zip(shape[lead:], keep_shape, keep_stride):
+        if k == n:
+            out.append(st)
+        elif k == 1:
+            out.append(0)
+        else:
+            raise ValueError(f"keep {tuple(keep_shape)} does not broadcast "
+                             f"to {tuple(shape)}")
+    return tuple(out)
+
+
+# (shape, dtype[, keep shape, keep strides, keep dtype]) -> the launch
+# geometry as the kernel reads it (d0, d1, d2, C, the mask's four strides,
+# dtype code, mask dtype code), held as a ctypes array whose address the
+# kernel's entry point takes.
+_BDA_GEOM: dict = {}
+_BDA_GEOM_MAX = 1024
+
+
+def _bda_geometry(fn, residual, keep, key):
+    """The checks that depend only on shapes, layouts and dtypes, made once
+    per distinct ``key``; returns the geometry, cached under it."""
+    shape = residual.shape
+    if residual.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{fn}: dtype {residual.dtype} not in "
+                        f"{tuple(_build.DTYPE_CODES)}")
+    if not 1 <= residual.ndim <= 4 or shape[-1] % 8:
+        raise ValueError(f"{fn}: shape {tuple(shape)} needs 1 to 4 dims and "
+                         "C % 8 == 0")
+    dims = (1,) * (4 - residual.ndim) + tuple(shape)
+    if dims[0] > _MAX_D01 or dims[1] > _MAX_D01:
+        raise ValueError(f"{fn}: shape {tuple(shape)}: the two leading dims "
+                         f"of its 4-dim view {dims} exceed the grid's "
+                         f"{_MAX_D01}")
+    kstrides, keep_code = (0, 0, 0, 0), 0
+    if keep is not None:
+        if keep.dtype not in KEEP_DTYPE_CODES:
+            raise TypeError(f"{fn}: keep {keep.dtype} is not one of "
+                            f"{tuple(KEEP_DTYPE_CODES)}")
+        kstrides = (0,) * (4 - residual.ndim) + broadcast_strides(
+            shape, keep.shape, keep.stride())
+        keep_code = KEEP_DTYPE_CODES[keep.dtype]
+    geom = (ctypes.c_longlong * 10)(*dims, *kstrides,
+                                     _build.DTYPE_CODES[residual.dtype],
+                                     keep_code)
+    if len(_BDA_GEOM) >= _BDA_GEOM_MAX:
+        _BDA_GEOM.clear()
+    _BDA_GEOM[key] = geom
+    return geom
 
 
 def bias_dropout_add_cuda(x: torch.Tensor, b: torch.Tensor | None,
@@ -49,56 +115,52 @@ def bias_dropout_add_cuda(x: torch.Tensor, b: torch.Tensor | None,
                           rate: float) -> torch.Tensor:
     """residual + keep * (x + b) / (1 - rate), summed in fp32, in the
     residual's dtype. x and residual: contiguous CUDA tensors of one shape
-    (at most 4 dims, C % 8 == 0, 16-byte aligned) and dtype (fp32 or bf16);
-    b: a (C,) fp32 tensor or None; keep: None (no dropout), or a 0/1 mask
-    (fp32, uint8 or bool) that broadcasts against x, typically at the reduced
-    shape with the shared axis of size 1, read through broadcast strides."""
+    (at most 4 dims, the first two of the 4-dim view at most 65535, C % 8 ==
+    0, 16-byte aligned) and dtype (fp32 or bf16); b: a (C,) fp32 tensor or
+    None; keep: None (no dropout), or a 0/1 mask (fp32, uint8 or bool) on
+    the same device that broadcasts against x, typically at the reduced
+    shape with the shared axis of size 1, read through broadcast strides.
+
+    The checks that depend only on shapes, strides and dtypes run once per
+    distinct combination (``_bda_geometry``); those of devices, contiguity
+    and alignment run every call."""
     fn = "bias_dropout_add_cuda"
     if not residual.is_cuda:
         raise ValueError(f"{fn} needs CUDA tensors, got {residual.device}")
-    if residual.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{fn}: dtype {residual.dtype} not in "
-                        f"{tuple(_build.DTYPE_CODES)}")
-    shape, dev = residual.shape, residual.device
-    if x.shape != shape or x.dtype != residual.dtype or x.device != dev:
+    shape, dt = residual.shape, residual.dtype
+    key = ((shape, dt) if keep is None else
+           (shape, dt, keep.shape, keep.stride(), keep.dtype))
+    geom = _BDA_GEOM.get(key)
+    if geom is None:
+        geom = _bda_geometry(fn, residual, keep, key)
+    dev = residual.get_device()
+    if x.shape != shape or x.dtype != dt or x.get_device() != dev:
         raise ValueError(f"{fn}: x {tuple(x.shape)} {x.dtype} must match the "
-                         f"residual {tuple(shape)} {residual.dtype}")
-    if not 1 <= residual.ndim <= 4 or shape[-1] % 8:
-        raise ValueError(f"{fn}: shape {tuple(shape)} needs 1 to 4 dims and "
-                         "C % 8 == 0")
-    for name, t in (("x", x), ("residual", residual)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
-                             "aligned")
-    c = shape[-1]
-    if b is not None and (b.shape != (c,) or b.dtype != torch.float32
-                          or b.device != dev or not b.is_contiguous()):
-        raise ValueError(f"{fn}: b must be a contiguous fp32 ({c},) tensor on "
-                         f"{dev}")
-    dims = (1,) * (4 - residual.ndim) + tuple(shape)
-    kstrides = (0, 0, 0, 0)
-    keep_code = 0
+                         f"residual {tuple(shape)} {dt}")
+    xp, rp = x.data_ptr(), residual.data_ptr()
+    if (not (x.is_contiguous() and residual.is_contiguous())
+            or (xp | rp) % 16):
+        raise ValueError(f"{fn}: x and the residual must be contiguous and "
+                         "16-byte aligned")
+    bp = kp = None
+    if b is not None:
+        if (b.shape != (shape[-1],) or b.dtype != torch.float32
+                or b.get_device() != dev or not b.is_contiguous()):
+            raise ValueError(f"{fn}: b must be a contiguous fp32 "
+                             f"({shape[-1]},) tensor on {residual.device}")
+        bp = b.data_ptr()
     if keep is not None:
         if not 0.0 < rate < 1.0:
             raise ValueError(f"{fn}: rate {rate} outside (0, 1)")
-        if keep.dtype not in KEEP_DTYPE_CODES or keep.device != dev:
-            raise TypeError(f"{fn}: keep {keep.dtype} on {keep.device} is not "
-                            f"one of {tuple(KEEP_DTYPE_CODES)} on {dev}")
-        try:
-            ke = keep.expand(shape)
-        except RuntimeError as e:
-            raise ValueError(f"{fn}: keep {tuple(keep.shape)} does not "
-                             f"broadcast to {tuple(shape)}") from e
-        kstrides = (0,) * (4 - residual.ndim) + tuple(ke.stride())
-        keep_code = KEEP_DTYPE_CODES[keep.dtype]
+        if keep.get_device() != dev:
+            raise ValueError(f"{fn}: keep on {keep.device}, not on "
+                             f"{residual.device}")
+        kp = keep.data_ptr()
     elif rate != 0.0:
         raise ValueError(f"{fn}: rate {rate} needs a keep mask")
     out = torch.empty_like(residual)
     err = _build.entry("bias_dropout_add")(
-        x.data_ptr(), b.data_ptr() if b is not None else None,
-        residual.data_ptr(), keep.data_ptr() if keep is not None else None,
-        out.data_ptr(), dims[0], dims[1], dims[2], c, *kstrides,
-        float(1.0 - rate), _build.DTYPE_CODES[residual.dtype], keep_code,
-        torch.cuda.current_stream(dev).cuda_stream)
+        xp, bp, rp, kp, out.data_ptr(), geom, 1.0 - rate,
+        _build.stream_handle(residual))
     _build.check("bias_dropout_add", err)
     return out

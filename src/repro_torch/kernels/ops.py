@@ -476,6 +476,13 @@ def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
     a_lin, ga: (B, I, K, C); mask: (B, I, K); b_full: (B, J, K, C) gated and
     masked; gamma, beta: (C,); w_out: (C, D); b_out, g_bias: (D,); g_lin:
     (B, I, J, D). Returns (B, I, J, D) in g_lin's dtype.
+
+    On the card this is K7 (``kernels/triangle.py``, ``csrc/triangle_mult.cu``,
+    replacing ``fused_triangle_pallas``): in bf16 a pre-pass gates a once
+    into a fragment-ordered workspace about twice a_lin's size (allocated
+    per call), then the main kernel's k loop reads it from L2 into
+    registers for mma.sync; the L2 re-reads and the epilogue bound it. One
+    launch count per call.
     """
     args = (a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin, g_bias)
     kernel = _runs_kernel("triangle", a_lin)
@@ -529,12 +536,16 @@ def fused_outer_product_mean(a: torch.Tensor, b_full: torch.Tensor,
 # bias + dropout + residual add
 # ---------------------------------------------------------------------------
 
+def _contig(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def _bda_fwd(x, b, residual, keep, rate, kernel):
     if not kernel:
         return ref.bias_dropout_add_ref(x, b, residual, keep, rate)
-    return bias_dropout_add_cuda(
-        x.contiguous(), b.float().contiguous() if b is not None else None,
-        residual.contiguous(), keep, rate)
+    if b is not None:
+        b = _contig(b.float())
+    return bias_dropout_add_cuda(_contig(x), b, _contig(residual), keep, rate)
 
 
 class _BiasDropoutAdd(torch.autograd.Function):

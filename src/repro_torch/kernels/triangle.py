@@ -8,6 +8,13 @@ The kernels replace ``fused_triangle_pallas`` and ``fused_opm_pallas``
 ``ops.fused_triangle_mult`` and ``ops.fused_outer_product_mean`` route CPU
 tensors to the plain versions. The kernels choose their own tiles.
 
+K7 in bf16 is two CUDA kernels behind one launch count: a pre-pass gates
+a once and writes it, with a copy of b, into a bf16 workspace in the order
+of mma.sync's fragments (``triangle_workspace``); the main kernel then
+reads those fragments from L2 straight into registers for its k loop and
+keeps LN, the projection and the gate on chip. What bounds each stage, and
+why, is in the note at the top of ``csrc/triangle_mult.cu``.
+
 ``triangle_mult_bwd`` and ``opm_bwd`` are the reference's backwards, which
 it computes outside any Pallas kernel, ported to PyTorch as they are: per
 block of j they rebuild the product from the saved inputs (and K7's LN
@@ -50,16 +57,41 @@ def _check_input(fn: str, t: torch.Tensor):
         raise TypeError(f"{fn}: dtype {t.dtype} not in {tuple(_build.DTYPE_CODES)}")
 
 
+# K7's tiles: 16 x 16 output pixels a block, k in tiles of 16; its bf16
+# operands are staged in the order of mma.sync's 16 x 16 fragments.
+TRI_TILE = 16
+
+
+def triangle_workspace(bsz: int, ni: int, nj: int, nk: int, c: int,
+                       d: int) -> dict[str, int]:
+    """The layout of K7's bf16 workspace (``csrc/triangle_mult.cu``,
+    ``layout``), in elements: the gated a's fragments at ``"a"``, shaped
+    (B, C, ceil(I/16), ceil(K/16), 32 lanes, 8); b's at ``"b"``, (B, C,
+    ceil(J/16), ceil(K/16), 32, 8); w_out^T (D, C) at ``"w"``; and the size,
+    ``"numel"``. Rows past I or J and k past K are zero padding."""
+    t = TRI_TILE
+    ti, tj, tk = -(-ni // t), -(-nj // t), -(-nk // t)
+    a = bsz * c * ti * tk * t * t
+    b = bsz * c * tj * tk * t * t
+    return {"a": 0, "b": a, "w": a + b, "numel": a + b + c * d,
+            "row_tiles_a": ti, "row_tiles_b": tj, "k_tiles": tk}
+
+
 def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
                         g_lin, g_bias, eps: float = 1e-5):
     """sigmoid(g_lin + g_bias) * (LN_C(sum_k (a_lin·σ(ga)·mask)[i,k] ⊙ b[j,k])
-    @ w_out + b_out), one kernel.
+    @ w_out + b_out), one op: in bf16 the pre-pass (a gated once into the
+    fragment-ordered workspace, b copied beside it) and the main kernel
+    (the k loop on mma.sync from registers, LN and the projection on chip),
+    counted as one launch; in fp32 one FMA kernel.
 
     a_lin, ga: (B, I, K, C) fp32 or bf16, unit channel stride, other strides
     multiples of 8; mask: (B, I, K) fp32, any strides; b_full: (B, J, K, C)
     and g_lin: (B, I, J, D), contiguous, in a_lin's dtype; gamma, beta: (C,),
     w_out: (C, D), b_out, g_bias: (D,), all fp32 contiguous. C, D in
-    ``TRI_WIDTHS``. Returns (out (B, I, J, D) in a_lin's dtype, mean and inv
+    ``TRI_WIDTHS``. The bf16 workspace (``triangle_workspace``, about twice
+    a_lin's size) is allocated here with ``torch.empty``; no (B, I, J, C)
+    buffer is. Returns (out (B, I, J, D) in a_lin's dtype, mean and inv
     (B, I, J) fp32)."""
     fn = "fused_triangle_cuda"
     _check_input(fn, a_lin)
@@ -67,8 +99,12 @@ def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
     nj, d = b_full.shape[1], w_out.shape[-1]
     if c not in TRI_WIDTHS or d not in TRI_WIDTHS:
         raise ValueError(f"{fn}: channel widths C={c}, D={d} not in {TRI_WIDTHS}")
-    if bsz > _build.MAX_GRID_YZ or -(-ni // 8) > _build.MAX_GRID_YZ:
-        raise ValueError(f"{fn}: B={bsz}, I={ni} outside the kernel's grid")
+    # The pre-pass's grid: z = B x (C / 32 channel chunks) x (a, b); y =
+    # the row tiles of I or J.
+    if (bsz * (c // 32) * 2 > _build.MAX_GRID_YZ
+            or -(-max(ni, nj) // 8) > _build.MAX_GRID_YZ):
+        raise ValueError(f"{fn}: B={bsz}, I={ni}, J={nj} outside the "
+                         "kernel's grid")
     dt, dev, f32 = a_lin.dtype, a_lin.device, torch.float32
     _check(f"{fn} ga", ga, a_lin.shape, dt, dev, contiguous=False)
     _check(f"{fn} mask", mask, (bsz, ni, nk), f32, dev, contiguous=False)
@@ -83,13 +119,18 @@ def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
     out = torch.empty((bsz, ni, nj, d), dtype=dt, device=dev)
     mean = torch.empty((bsz, ni, nj), dtype=f32, device=dev)
     inv = torch.empty((bsz, ni, nj), dtype=f32, device=dev)
+    ws, ws_numel = None, 0
+    if dt == torch.bfloat16:
+        ws_numel = triangle_workspace(bsz, ni, nj, nk, c, d)["numel"]
+        ws = torch.empty(ws_numel, dtype=dt, device=dev)
     err = _build.entry("triangle_mult")(
         a_lin.data_ptr(), ga.data_ptr(), mask.data_ptr(), b_full.data_ptr(),
         gamma.data_ptr(), beta.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         g_lin.data_ptr(), g_bias.data_ptr(), out.data_ptr(), mean.data_ptr(),
-        inv.data_ptr(), *a_lin.stride()[:3], *ga.stride()[:3],
-        *mask.stride(), bsz, ni, nj, nk, c, d, float(eps),
-        _build.DTYPE_CODES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        inv.data_ptr(), None if ws is None else ws.data_ptr(), ws_numel,
+        *a_lin.stride()[:3], *ga.stride()[:3], *mask.stride(), bsz, ni, nj,
+        nk, c, d, float(eps), _build.DTYPE_CODES[dt],
+        _build.stream_handle(a_lin))
     _build.check("triangle_mult", err)
     return out, mean, inv
 

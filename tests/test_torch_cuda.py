@@ -9,6 +9,7 @@ on a machine without it:
 import pytest
 import torch
 
+from repro_torch.core.evoformer import DROPOUT_SITES
 from repro_torch.exec.plan import ExecutionPlan, KernelPolicy, use_plan
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (copy_for_kernel,
@@ -16,7 +17,8 @@ from repro_torch.kernels.flash_attention import (copy_for_kernel,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
 from repro_torch.kernels.fused_softmax import fused_softmax_cuda
-from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
+from repro_torch.kernels.triangle import (fused_opm_cuda, fused_triangle_cuda,
+                                          triangle_workspace)
 
 pytestmark = pytest.mark.cuda
 
@@ -176,20 +178,33 @@ def test_flash_attention_copies_misaligned_views(gen):
             _close(g, w, 2e-2)
 
 
+# (case, x shape, keep shape): a small shape with the shared axis 1 or 2,
+# then the six dropout sites of the FULL-width main path (DROPOUT_SITES:
+# the MSA row at (1, s, r, 256), the pair sites at (1, r, r, 128), s = 128,
+# r = 256), each with its reduced mask.
+_FULL_MSA, _FULL_PAIR = (1, 128, 256, 256), (1, 256, 256, 128)
+BDA_CASES = [("small_axis1", (1, 12, 20, 128), (1, 1, 20, 128)),
+             ("small_axis2", (1, 12, 20, 128), (1, 12, 1, 128))] + [
+    (site, _FULL_MSA if site == "msa_row" else _FULL_PAIR,
+     tuple(1 if i == axis else n for i, n in enumerate(
+         _FULL_MSA if site == "msa_row" else _FULL_PAIR)))
+    for site, axis in DROPOUT_SITES.items()]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shared_axis", [1, 2])
+@pytest.mark.parametrize("case,shape,keep_shape", BDA_CASES,
+                         ids=[c[0] for c in BDA_CASES])
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("keep_dtype", [torch.float32, torch.bool])
-def test_bias_dropout_add_kernel(gen, with_bias, shared_axis, keep_dtype,
-                                 dtype, tol):
-    shape = (1, 12, 20, 128)
+@pytest.mark.parametrize("keep_dtype", [torch.float32, torch.uint8,
+                                        torch.bool])
+def test_bias_dropout_add_kernel(gen, with_bias, case, shape, keep_shape,
+                                 keep_dtype, dtype, tol):
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     res = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    b = torch.randn(128, generator=gen, device="cuda") if with_bias else None
-    reduced = list(shape)
-    reduced[shared_axis] = 1
-    keep = (torch.rand(reduced, generator=gen, device="cuda") < 0.75)
+    b = (torch.randn(shape[-1], generator=gen, device="cuda") if with_bias
+         else None)
+    keep = (torch.rand(keep_shape, generator=gen, device="cuda") < 0.75)
     keep = keep.to(keep_dtype)
     _build.reset_launches()
     got = ops.bias_dropout_add(x, b, res, 0.25, keep)
@@ -248,16 +263,25 @@ def _randn(gen, shape, scale=1.0, dtype=torch.float32):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("bsz,ni,nj,nk,c,d", [
-    (1, 40, 40, 40, 128, 128),    # FULL widths, ragged against the 16 tile
-    (2, 19, 33, 21, 32, 32),      # MINI widths, I != J
-    (1, 16, 16, 70, 32, 128),     # C != D
+@pytest.mark.parametrize("bsz,ni,nj,nk,c,d,incoming", [
+    (1, 40, 40, 40, 128, 128, False),   # FULL widths, ragged against the 16 tile
+    (2, 19, 33, 21, 32, 32, False),     # MINI widths, I != J
+    (1, 16, 16, 70, 32, 128, False),    # C != D
+    (1, 17, 130, 200, 128, 128, False), # I, J, K all off the tiles
+    (2, 48, 40, 36, 128, 128, True),    # B = 2, the incoming update's views
+    (1, 64, 64, 16, 128, 128, False),   # I J C fp32 well above the workspace
 ])
-def test_triangle_mult_kernel(gen, bsz, ni, nj, nk, c, d, dtype, tol):
+def test_triangle_mult_kernel(gen, bsz, ni, nj, nk, c, d, incoming, dtype,
+                              tol):
     # a_lin and ga are column halves of one merged projection, as in the
-    # Evoformer; the mask is a transposed view with two fully masked rows.
-    ab = _randn(gen, (bsz, ni, nk, 2 * c), 1.0, dtype)
-    g = _randn(gen, (bsz, ni, nk, 2 * c), 2.0, dtype)
+    # Evoformer: (B, I, K, 2C), or for the incoming update (B, K, I, 2C)
+    # read transposed; the mask is a transposed view with two fully masked
+    # rows.
+    proj = (bsz, nk, ni, 2 * c) if incoming else (bsz, ni, nk, 2 * c)
+    ab = _randn(gen, proj, 1.0, dtype)
+    g = _randn(gen, proj, 2.0, dtype)
+    if incoming:
+        ab, g = ab.transpose(1, 2), g.transpose(1, 2)
     keep = torch.rand((bsz, nk, ni), generator=gen, device="cuda") < 0.8
     mask = keep.float().transpose(1, 2)
     mask[:, :2] = 0.0
@@ -265,14 +289,30 @@ def test_triangle_mult_kernel(gen, bsz, ni, nj, nk, c, d, dtype, tol):
             1 + _randn(gen, (c,), 0.1), _randn(gen, (c,), 0.1),
             _randn(gen, (c, d), c ** -0.5), _randn(gen, (d,), 0.1),
             _randn(gen, (bsz, ni, nj, d), 2.0, dtype), _randn(gen, (d,)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     _build.reset_launches()
     out, mean, inv = fused_triangle_cuda(*args)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
     assert _build.LAUNCHES["triangle_mult"] == 1
+    # Nothing beyond the outputs and the bf16 workspace (each allocation
+    # rounded up to the allocator's 512 bytes): no (B, I, J, C) product.
+    ws = (triangle_workspace(bsz, ni, nj, nk, c, d)["numel"] * 2
+          if dtype == torch.bfloat16 else 0)
+    allowed = (out.numel() * out.element_size() + 2 * mean.numel() * 4 + ws
+               + 4 * 512)
+    assert peak <= allowed, (peak, allowed)
+    if (ni, nj, nk) == (64, 64, 16) and dtype == torch.bfloat16:
+        assert allowed < bsz * ni * nj * c * 4      # the check can see one
     want, want_mean, want_inv = ref.triangle_mult_ref(*args)
     _close(out, want, tol)
     _close(mean, want_mean, tol)     # fp32 sums of operands in the dtype
     _close(inv, want_inv, tol)
+    # A fully masked a row: LN of zeros, (0 - 0) * rsqrt(eps).
+    assert float(mean[:, :2].abs().max()) == 0.0
+    _close(inv[:, :2], torch.full_like(inv[:, :2], 1e-5 ** -0.5), 1e-6)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
