@@ -449,16 +449,31 @@ def kernel_phase(torch, timer, seen):
     from repro_torch.kernels.fused_softmax import fused_softmax_cuda
     from repro_torch.kernels.layer_norm import layer_norm_cuda
     from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
+    from repro_torch.timing import cold_device_ms, device_ms, host_us
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # The timing copies draw from their own generator, so that the checks'
+    # inputs do not depend on which calls are timed.
+    copies_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     other = {"float32": "bfloat16", "bfloat16": "float32"}
 
-    def randn(shape, dtype="float32", scale=1.0, shift=0.0):
-        x = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+    def randn(shape, dtype="float32", scale=1.0, shift=0.0, g=None):
+        x = torch.randn(shape, generator=g or gen, device="cuda") * scale + shift
         return x.to(dts[dtype])
 
     results = []
+
+    def device_timing(fn, make_args, prefix=""):
+        """``fn(*make_args())``'s device time from the profiler, after the
+        L2 flush and on cold inputs (copies of the inputs cycled, 200 MB or
+        more), and its host time a call."""
+        args = make_args()
+        cold, _ = cold_device_ms(fn, make_args)
+        return {f"{prefix}device_ms": sum(device_ms(lambda: fn(*args),
+                                                    timer.flush).values()),
+                f"{prefix}cold_device_ms": cold,
+                f"{prefix}host_us": host_us(lambda: fn(*args))}
 
     def record(kernel, case, dtype, shape, got, want, timing=None, extra=None,
                rel=None):
@@ -496,7 +511,13 @@ def kernel_phase(torch, timer, seen):
                 "ms": timer(lambda: layer_norm_cuda(x, gamma, beta)),
                 "plain_ms": timer(lambda: ref.layer_norm_ref(x, gamma, beta)),
                 "library_ms": timer(lambda: F.layer_norm(x, (c,), g_l, b_l)),
-                "bound_ms": t_b, "bound_by": by}
+                "bound_ms": t_b, "bound_by": by,
+                **device_timing(layer_norm_cuda, lambda: (
+                    randn(shape, dt, 2.0, 0.5, copies_gen), gamma, beta)),
+                **device_timing(lambda x_, g_, b_: F.layer_norm(
+                    x_, (c,), g_, b_), lambda: (
+                    randn(shape, dt, 2.0, 0.5, copies_gen), g_l, b_l),
+                    "library_")}
         record("layer_norm", case, dt, shape, got, want, timing,
                {"main_path": main})
 
@@ -517,7 +538,10 @@ def kernel_phase(torch, timer, seen):
                 "ms": timer(lambda: bias_sigmoid_mul_cuda(g, bg, v)),
                 "plain_ms": timer(lambda: ref.bias_sigmoid_mul_ref(g, bg, v)),
                 "library_ms": timer(lambda: torch.sigmoid(g + bg_l) * v),
-                "bound_ms": t_b, "bound_by": by}
+                "bound_ms": t_b, "bound_by": by,
+                "host_us": host_us(lambda: bias_sigmoid_mul_cuda(g, bg, v)),
+                "library_host_us": host_us(
+                    lambda: torch.sigmoid(g + bg_l) * v)}
         record("bias_sigmoid_mul", case, dt, shape, got, want, timing,
                {"main_path": main})
 
@@ -692,20 +716,26 @@ def kernel_phase(torch, timer, seen):
 
     # --- K8 fused outer-product-mean. a and b are masked by the MSA mask,
     # which also masks n_masked MSA rows and the last residue entirely.
-    def check_opm(case, a_shape, nj, d, dt, main, n_masked=0):
+    def opm_inputs(a_shape, nj, d, dt, n_masked=0, g=None):
         bsz, ns, ni, c = a_shape
         nr = max(ni, nj)
-        mask = (torch.rand((bsz, ns, nr), generator=gen, device="cuda")
+        mask = (torch.rand((bsz, ns, nr), generator=g or gen, device="cuda")
                 < 0.9).float()
         mask[:, :n_masked] = 0.0
         mask[..., nr - 1] = 0.0
         mask_a, mask_b = mask[..., :ni].contiguous(), mask[..., :nj].contiguous()
         tdt = dts[dt]
-        a = randn(a_shape, dt) * mask_a[..., None].to(tdt)
-        b_full = randn((bsz, ns, nj, c), dt) * mask_b[..., None].to(tdt)
-        w = randn((c * c, d), dt, 1.0 / c)
-        bias = randn((d,), "float32")
-        args = (a, b_full, mask_a, mask_b, w, bias)
+        a = randn(a_shape, dt, g=g) * mask_a[..., None].to(tdt)
+        b_full = randn((bsz, ns, nj, c), dt, g=g) * mask_b[..., None].to(tdt)
+        w = randn((c * c, d), dt, 1.0 / c, g=g)
+        bias = randn((d,), "float32", g=g)
+        return a, b_full, mask_a, mask_b, w, bias
+
+    def check_opm(case, a_shape, nj, d, dt, main, n_masked=0):
+        bsz, ns, ni, c = a_shape
+        tdt = dts[dt]
+        args = opm_inputs(a_shape, nj, d, dt, n_masked)
+        a, b_full, mask_a, mask_b, w, bias = args
         out = fused_opm_cuda(*args)
         want = ref.outer_product_mean_ref(*args)
         timing = None
@@ -730,7 +760,17 @@ def kernel_phase(torch, timer, seen):
                 "library_ms": timer(composition),
                 "library_call": "cuBLAS composition: einsum (permute + bmm) "
                                 "+ fp32 divide + F.linear",
-                "bound_ms": t_b, "bound_by": by}
+                "bound_ms": t_b, "bound_by": by,
+                **device_timing(fused_opm_cuda, lambda: opm_inputs(
+                    a_shape, nj, d, dt, n_masked, copies_gen)),
+                "library_host_us": host_us(composition)}
+            if dt == "bfloat16":
+                # The same call with its s loop empty: the projection and
+                # the store; the outer product is the rest.
+                proj = device_timing(fused_opm_cuda, lambda: opm_inputs(
+                    (bsz, 0, ni, c), nj, d, dt, g=copies_gen), "projection_")
+                timing.update(proj, outer_product_device_ms=(
+                    timing["device_ms"] - proj["projection_device_ms"]))
         record("outer_product_mean", case, dt, (bsz, ns, ni, nj, c, d), out,
                want, timing, {"main_path": main,
                               "fully_masked_rows": n_masked})
@@ -1588,11 +1628,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "flags": _build.NVCC_FLAGS})
-    # The tensor-core attention kernels', K7's and K3's registers, spills
-    # and static shared memory (dynamic shared memory is sized at launch:
-    # see their sources).
-    for k in ("flash_attention_fwd", "flash_attention_bwd", "triangle_mult",
-              "bias_dropout_add"):
+    # Registers, spills and static shared memory of K1's two variants, the
+    # tensor-core kernels (K5, K6, K7, K8) and K3 (dynamic shared memory is
+    # sized at launch: see their sources).
+    for k in ("layer_norm", "flash_attention_fwd", "flash_attention_bwd",
+              "triangle_mult", "outer_product_mean", "bias_dropout_add"):
         emit({"phase": "ptxas", "source": SOURCES[k][0],
               "entries": ptxas_report(_build.BUILD_LOG.get(k, ""))})
 

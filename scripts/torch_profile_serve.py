@@ -7,6 +7,7 @@ on the GPU (PyTorch port).
     PYTHONPATH=src python scripts/torch_profile_serve.py --plan attention-oracle
     PYTHONPATH=src python scripts/torch_profile_serve.py --attention --n-res 256 384
     PYTHONPATH=src python scripts/torch_profile_serve.py --triangle-dropout --n-res 256 384
+    PYTHONPATH=src python scripts/torch_profile_serve.py --opm-layernorm --n-res 256 384
 
 ``--plan`` names the ExecutionPlan the model runs under: a preset
 (default, oracle, interpret, triangle-oracle) or ``attention-oracle``,
@@ -31,7 +32,7 @@ projection, as the model lays them out. For each call it prints the device
 time of every kernel the two wrappers launch, and that of
 ``F.scaled_dot_product_attention`` forward and backward on the same inputs
 (bias and mask summed into one (N, H, S, S) mask), each over 20 launches
-with the 50 MB L2 cache flushed before each (see ``_device_ms``), the
+with the 50 MB L2 cache flushed before each (``repro_torch.timing``), the
 least time for the work of K5 and K6, and the wrappers' host time per
 call.
 
@@ -48,6 +49,16 @@ reduced fp32 keep mask of each distinct shape), beside ``torch.addcmul``.
 Each is timed after the L2 flush and, without it, on cold inputs: the
 calls cycle through copies of their inputs that together hold 200 MB or
 more.
+
+With ``--opm-layernorm`` it profiles K8 ``fused_opm_cuda`` and K1
+``layer_norm_cuda`` alone, bf16, the same two ways. K8 at the main path's
+call for each residue count (a and b (1, s, r, 32) masked by the MSA mask,
+w (1024, 128)), with the same call at S = 0 (its s loop empty: the
+projection and the store; the outer product is the difference) and the
+cuBLAS composition the port ran before it. K1 at the MSA (1, s, r, 256),
+pair (1, r, r, 128) and single (1, r, 384) rows, beside ``F.layer_norm``.
+Each row carries the least time for the work (the bytes at 3.35 TB/s or
+the operations at 989 TFLOP/s, the larger).
 
 With ``--train`` it does the same for one step of
 ``make_train_step(FastFold(FULL).loss_fn)`` (the port's own init, bf16,
@@ -74,7 +85,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import time
 from collections import defaultdict
@@ -88,6 +98,7 @@ from repro_torch.data import protein_batches
 from repro_torch.exec import ExecutionPlan, FastFold, KernelPolicy, PRESETS
 from repro_torch.kernels import _build
 from repro_torch.layers.params import tree_leaves, tree_map
+from repro_torch.timing import cold_device_ms, device_ms, host_us
 from repro_torch.train import make_train_step
 from repro_torch.weights import (params_from_numpy, params_to_numpy,
                                  randomize_tree)
@@ -100,6 +111,7 @@ from repro_torch.weights import (params_from_numpy, params_to_numpy,
 # kernel.
 PORT_KERNELS = {
     "layer_norm_kernel": "K1 layer_norm",
+    "layer_norm_vec_kernel": "K1 layer_norm",
     "bias_sigmoid_mul_kernel": "K2 bias_sigmoid_mul",
     "bias_dropout_add_kernel": "K3 bias_dropout_add",
     "softmax_warp_kernel": "K4 fused_softmax",
@@ -118,7 +130,8 @@ PORT_KERNELS = {
     "triangle_prepass_kernel": "K7 triangle_mult",
     "triangle_mult_mma_kernel": "K7 triangle_mult",
     "triangle_mult_fma_kernel": "K7 triangle_mult",
-    "outer_product_mean_mma_kernel": "K8 outer_product_mean",
+    "outer_product_mean_wgmma_kernel": "K8 outer_product_mean",
+    "outer_product_mean_fma_kernel": "K8 outer_product_mean",
 }
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation"}
@@ -239,49 +252,21 @@ PLANS = {**PRESETS, "attention-oracle": ExecutionPlan(
     kernels=KernelPolicy(attention="oracle"))}
 
 
-def _device_ms(fn, flush, reps: int = 20) -> dict[str, float]:
-    """Device time per call of each kernel ``fn`` launches: over ``reps``
-    calls, each after a write of ``flush`` that evicts the L2 cache (none
-    where ``flush`` is None), the median duration of each kernel (by name)
-    times its launches per call (for a name launched for different work
-    within a call, as the elementwise kernels of a composition are, that
-    stands for their sum). The flush's own kernels are left out."""
-    def tally(f):
-        for _ in range(3):
-            f()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.zero_()
-                f()
-            torch.cuda.synchronize()
-        out = defaultdict(list)
-        for evt in prof.profiler.kineto_results.events():
-            if evt.device_type() == DeviceType.CUDA:
-                out[evt.name()[:80]].append((evt.end_ns() - evt.start_ns()) / 1e6)
-        return out
-
-    flush_kernels = set(tally(lambda: None))
-    return {k: statistics.median(ms) * len(ms) / reps
-            for k, ms in tally(fn).items() if k not in flush_kernels}
-
-
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _host_us(fn) -> float:
-    """Host time of one call, the device left to run behind."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        fn()
-    us = (time.perf_counter() - t0) / 50 * 1e6
-    torch.cuda.synchronize()
-    return us
+def timed_call(name, fn, make_args, row, flush) -> None:
+    """``fn(*make_args())`` timed two ways into ``row``: per kernel after
+    the L2 flush, as everywhere in this script, and summed on cold inputs
+    (``repro_torch.timing.cold_device_ms``); and its host time a call."""
+    args = make_args()
+    per_kernel = device_ms(lambda: fn(*args), flush)
+    row[f"{name}_device_ms"] = sum(per_kernel.values())
+    row[f"{name}_kernels_ms"] = per_kernel
+    row[f"{name}_cold_device_ms"], row[f"{name}_cold_copies"] = cold_device_ms(
+        fn, make_args)
+    row[f"{name}_host_us"] = host_us(lambda: fn(*args))
 
 
 def attention_profile(n_res_list, n_seq: int, seed: int, smi: str) -> None:
@@ -348,10 +333,10 @@ def attention_profile(n_res_list, n_seq: int, seed: int, smi: str) -> None:
                 row[f"{name}_bound_ms"] = max(
                     nbytes_ / 3.35e12, ops * n * h * s * s * d / 989e12) * 1e3
             for name, fn in calls.items():
-                per_kernel = _device_ms(fn, flush)
+                per_kernel = device_ms(fn, flush)
                 row[f"{name}_device_ms"] = sum(per_kernel.values())
                 row[f"{name}_kernels_ms"] = per_kernel
-                row[f"{name}_host_us"] = _host_us(fn)
+                row[f"{name}_host_us"] = host_us(fn)
             print(json.dumps(row), flush=True)
 
 
@@ -375,29 +360,6 @@ def triangle_dropout_profile(n_res_list, n_seq: int, seed: int,
     def randn(shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
-
-    def timed(name, fn, make_args, row):
-        """``fn(*args)`` timed two ways: after the L2 flush, as everywhere
-        in this script, and on cold inputs without a flush, the calls
-        cycling through copies of the inputs (``make_args()`` each) that
-        together hold 200 MB or more, 4x the L2. A written flush leaves
-        dirty lines that the timed call writes back, so a memory-bound
-        call pays for more than its own bytes; cycling copies charges each
-        call its own reads and, in the steady state, the write-back of one
-        earlier call's output: the bytes its bound counts."""
-        sets = [make_args()]
-        size = sum(t.numel() * t.element_size() for t in sets[0]
-                   if isinstance(t, torch.Tensor))
-        while len(sets) < max(2, -(-(200 << 20) // size)):
-            sets.append(make_args())
-        per_kernel = _device_ms(lambda: fn(*sets[0]), flush)
-        row[f"{name}_device_ms"] = sum(per_kernel.values())
-        row[f"{name}_kernels_ms"] = per_kernel
-        turn = iter(range(1 << 62))
-        row[f"{name}_cold_device_ms"] = sum(_device_ms(
-            lambda: fn(*sets[next(turn) % len(sets)]), None).values())
-        row[f"{name}_cold_copies"] = len(sets)
-        row[f"{name}_host_us"] = _host_us(lambda: fn(*sets[0]))
 
     for r in n_res_list:
         for site in ("outgoing", "incoming"):
@@ -442,9 +404,11 @@ def triangle_dropout_profile(n_res_list, n_seq: int, seed: int,
 
             row = {"device": smi, "kernel": "triangle_mult", "site": site,
                    "n_res": r, "shape": [1, r, r, r, c, d], "dtype": "bfloat16"}
-            timed("k7", fused_triangle_cuda, make_args, row)
-            timed("k7_k0_epilogue", fused_triangle_cuda, make_empty, row)
-            timed("composition", composition, make_composition_args, row)
+            timed_call("k7", fused_triangle_cuda, make_args, row, flush)
+            timed_call("k7_k0_epilogue", fused_triangle_cuda, make_empty, row,
+                       flush)
+            timed_call("composition", composition, make_composition_args, row,
+                       flush)
             print(json.dumps(row), flush=True)
     # K3 at the training crop's dropout sites (r = 256 or the first given),
     # each with its reduced fp32 mask as the main path draws it; the
@@ -469,11 +433,96 @@ def triangle_dropout_profile(n_res_list, n_seq: int, seed: int,
         row = {"device": smi, "kernel": "bias_dropout_add", "site": site,
                "shape": list(shape), "keep_shape": list(kshape),
                "rate": rate, "dtype": "bfloat16"}
-        timed("k3", lambda x, res, keep, _: bias_dropout_add_cuda(
-            x, None, res, keep, rate), make_args, row)
-        timed("addcmul", lambda x, res, _, keep_l: torch.addcmul(
-            res, x, keep_l, value=1.0 / (1.0 - rate)), make_args, row)
+        timed_call("k3", lambda x, res, keep, _: bias_dropout_add_cuda(
+            x, None, res, keep, rate), make_args, row, flush)
+        timed_call("addcmul", lambda x, res, _, keep_l: torch.addcmul(
+            res, x, keep_l, value=1.0 / (1.0 - rate)), make_args, row, flush)
         print(json.dumps(row), flush=True)
+
+
+def opm_layernorm_profile(n_res_list, n_seq: int, seed: int,
+                          smi: str) -> None:
+    """K8 and K1 alone at the main path's calls (see the module docstring):
+    per call the device time after the flush and on cold inputs, the host
+    time of a call, the least time for the work, and the library
+    yardstick's times; for K8 also the call at S = 0 (its s loop empty:
+    the projection and the store)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.layer_norm import layer_norm_cuda
+    from repro_torch.kernels.triangle import fused_opm_cuda
+
+    evo = FULL.evoformer
+    c, d = evo.opm_dim, evo.d_pair
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+
+    def randn(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def bound_ms(bytes_moved, ops):
+        return max(bytes_moved / 3.35e12, ops / 989e12) * 1e3
+
+    for r in n_res_list:
+        def make_args(ns=n_seq):
+            # The MSA mask masks one MSA row in ten and the last residue.
+            mask = (torch.rand((1, ns, r), generator=gen, device="cuda")
+                    < 0.9).float()
+            mask[..., r - 1] = 0.0
+            a = randn((1, ns, r, c)) * mask[..., None].to(bf16)
+            b = randn((1, ns, r, c)) * mask[..., None].to(bf16)
+            return (a, b, mask, mask.clone(), randn((c * c, d), 1.0 / c),
+                    randn((d,), 1.0, torch.float32))
+
+        def make_composition_args():
+            a, b, ma, mb, w, bias = make_args()
+            return a, b, ma, mb, w.t().contiguous(), bias.to(bf16)
+
+        def composition(a, b, ma, mb, w_t, b_l):
+            o = torch.einsum("bsic,bsjd->bijcd", a, b)
+            norm = torch.einsum("bsi,bsj->bij", ma, mb)
+            o = (o.float() / (norm[..., None, None] + 1e-3)).to(bf16)
+            return F.linear(o.reshape(o.shape[:3] + (c * c,)), w_t, b_l)
+
+        args = make_args()
+        row = {"device": smi, "kernel": "outer_product_mean", "n_res": r,
+               "shape": [1, n_seq, r, r, c, d], "dtype": "bfloat16",
+               "bound_ms": bound_ms(nbytes(*args) + r * r * d * 2,
+                                    2.0 * r * r * n_seq * (c * c + 1)
+                                    + 2.0 * r * r * c * c * d)}
+        timed_call("k8", fused_opm_cuda, make_args, row, flush)
+        timed_call("k8_s0_projection", fused_opm_cuda, lambda: make_args(0),
+                   row, flush)
+        row["k8_outer_product_ms"] = (row["k8_device_ms"]
+                                      - row["k8_s0_projection_device_ms"])
+        timed_call("composition", composition, make_composition_args, row,
+                   flush)
+        print(json.dumps(row), flush=True)
+        # K1 at the MSA, pair and single rows; F.layer_norm with the
+        # weights cast beforehand.
+        for site, shape in (("msa", (1, n_seq, r, evo.d_msa)),
+                            ("pair", (1, r, r, evo.d_pair)),
+                            ("single", (1, r, FULL.structure.c_s))):
+            width = shape[-1]
+
+            def make_ln_args():
+                return (randn(shape, 2.0), 1 + randn((width,), 0.1, torch.float32),
+                        randn((width,), 0.1, torch.float32))
+
+            def make_library_args():
+                x, g, b = make_ln_args()
+                return x, g.to(bf16), b.to(bf16)
+
+            x = make_ln_args()[0]
+            row = {"device": smi, "kernel": "layer_norm", "site": site,
+                   "n_res": r, "shape": list(shape), "dtype": "bfloat16",
+                   "bound_ms": bound_ms(2 * nbytes(x) + 8 * width,
+                                        8.0 * x.numel())}
+            timed_call("k1", layer_norm_cuda, make_ln_args, row, flush)
+            timed_call("layer_norm", lambda x, g, b: F.layer_norm(
+                x, (width,), g, b), make_library_args, row, flush)
+            print(json.dumps(row), flush=True)
 
 
 def main() -> None:
@@ -489,6 +538,9 @@ def main() -> None:
     ap.add_argument("--triangle-dropout", action="store_true",
                     help="profile the triangle (K7) and bias-dropout-add "
                          "(K3) kernels alone")
+    ap.add_argument("--opm-layernorm", action="store_true",
+                    help="profile the outer-product-mean (K8) and LayerNorm "
+                         "(K1) kernels alone")
     ap.add_argument("--plan", choices=sorted(PLANS), default="default",
                     help="the ExecutionPlan the model runs under")
     args = ap.parse_args()
@@ -503,6 +555,9 @@ def main() -> None:
         return
     if args.triangle_dropout:
         triangle_dropout_profile(args.n_res, args.n_seq, args.seed, smi)
+        return
+    if args.opm_layernorm:
+        opm_layernorm_profile(args.n_res, args.n_seq, args.seed, smi)
         return
     ff = FastFold(FULL, plan=PLANS[args.plan])
     if args.train:

@@ -43,7 +43,9 @@ _c_float = ctypes.c_float
 SIGNATURES = {
     "layer_norm": ("layer_norm_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, gamma, beta, out
-        _c_ll, _c_int, _c_float, _c_int, _c_void_p]),  # rows, C, eps, dtype, stream
+        _c_ll, _c_int, _c_float,                      # rows, C, eps
+        _c_int, _c_int,                               # lanes a row (log2), vectors a lane
+        _c_int, _c_void_p]),                          # dtype, stream
     "bias_sigmoid_mul": ("bias_sigmoid_mul_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # g, bg, v, out
         _c_ll, _c_int, _c_int, _c_void_p]),            # numel, C, dtype, stream
@@ -98,8 +100,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The largest y or z extent of a CUDA launch grid.
 MAX_GRID_YZ = 65535
 
+# The most launch geometries a wrapper caches before it starts afresh.
+GEOM_CACHE_MAX = 1024
+
 _lock = threading.Lock()
 _entries: dict = {}   # name -> typed ctypes function; keeps its library loaded
+
+
+def remember(cache: dict, key, value):
+    """Cache a wrapper's checked geometry ``value`` under ``key`` (a full
+    cache is emptied first) and return it."""
+    if len(cache) >= GEOM_CACHE_MAX:
+        cache.clear()
+    cache[key] = value
+    return value
 
 
 def reset_launches() -> None:

@@ -15,30 +15,55 @@ import torch
 from repro_torch.kernels import _build
 
 
+# (g, bg, v: shape, stride, dtype) -> (numel, C, dtype code).
+_BSM_GEOM: dict = {}
+
+
+def _bsm_geometry(fn, g, bg, v, key):
+    """The checks that depend only on shapes, layouts and dtypes, made once
+    per distinct ``key``; returns the launch geometry, cached under it."""
+    c = v.shape[-1] if v.ndim else 0
+    if v.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{fn}: dtype {v.dtype} not in "
+                        f"{tuple(_build.DTYPE_CODES)}")
+    if g.shape != v.shape or g.dtype != v.dtype:
+        raise ValueError(f"{fn}: g {tuple(g.shape)} {g.dtype} must match v "
+                         f"{tuple(v.shape)} {v.dtype}")
+    if not (g.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{fn}: g and v must be contiguous")
+    if (c <= 0 or bg.shape != (c,) or bg.dtype != torch.float32
+            or not bg.is_contiguous()):
+        raise ValueError(f"{fn}: bg must be a contiguous fp32 ({c},) tensor")
+    return _build.remember(_BSM_GEOM, key,
+                           (v.numel(), c, _build.DTYPE_CODES[v.dtype]))
+
+
+def _bsm_checked(fn, g, bg, v):
+    """The geometry of a call: cached under the shapes, strides and dtypes
+    of its tensors, so that a layout or dtype not seen before is checked."""
+    key = (g.shape, g.stride(), g.dtype, bg.shape, bg.stride(), bg.dtype,
+           v.shape, v.stride(), v.dtype)
+    geom = _BSM_GEOM.get(key)
+    return geom if geom is not None else _bsm_geometry(fn, g, bg, v, key)
+
+
 def bias_sigmoid_mul_cuda(g: torch.Tensor, bg: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """sigmoid(g + bg) * v: g and v contiguous CUDA tensors of one shape and
-    dtype (fp32 or bf16), bg a (C,) fp32 tensor. Output in v's dtype."""
-    c = v.shape[-1]
+    dtype (fp32 or bf16), bg a (C,) fp32 tensor on the same device. Output
+    in v's dtype. The checks that depend only on shapes, strides and dtypes
+    run once per distinct combination (``_bsm_geometry``)."""
+    fn = "bias_sigmoid_mul_cuda"
     if not v.is_cuda:
-        raise ValueError(f"bias_sigmoid_mul_cuda needs a CUDA tensor, got {v.device}")
-    if v.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"bias_sigmoid_mul_cuda: dtype {v.dtype} not in "
-                        f"{tuple(_build.DTYPE_CODES)}")
-    if g.shape != v.shape or g.dtype != v.dtype or g.device != v.device:
-        raise ValueError(f"bias_sigmoid_mul_cuda: g {tuple(g.shape)} {g.dtype} "
-                         f"must match v {tuple(v.shape)} {v.dtype}")
-    if not (g.is_contiguous() and v.is_contiguous()):
-        raise ValueError("bias_sigmoid_mul_cuda: g and v must be contiguous")
-    if (bg.shape != (c,) or bg.dtype != torch.float32 or bg.device != v.device
-            or not bg.is_contiguous()):
-        raise ValueError(f"bias_sigmoid_mul_cuda: bg must be a contiguous fp32 "
-                         f"({c},) tensor on {v.device}")
+        raise ValueError(f"{fn} needs a CUDA tensor, got {v.device}")
+    numel, c, code = _bsm_checked(fn, g, bg, v)
+    dev = v.get_device()
+    if g.get_device() != dev or bg.get_device() != dev:
+        raise ValueError(f"{fn}: g and bg must be on {v.device}")
     out = torch.empty_like(v)
     err = _build.entry("bias_sigmoid_mul")(
-        g.data_ptr(), bg.data_ptr(), v.data_ptr(), out.data_ptr(), v.numel(),
-        c, _build.DTYPE_CODES[v.dtype],
-        torch.cuda.current_stream(v.device).cuda_stream)
+        g.data_ptr(), bg.data_ptr(), v.data_ptr(), out.data_ptr(), numel, c,
+        code, _build.stream_handle(v))
     _build.check("bias_sigmoid_mul", err)
     return out
 
@@ -75,7 +100,6 @@ def broadcast_strides(shape, keep_shape, keep_stride) -> tuple[int, ...]:
 # dtype code, mask dtype code), held as a ctypes array whose address the
 # kernel's entry point takes.
 _BDA_GEOM: dict = {}
-_BDA_GEOM_MAX = 1024
 
 
 def _bda_geometry(fn, residual, keep, key):
@@ -104,10 +128,7 @@ def _bda_geometry(fn, residual, keep, key):
     geom = (ctypes.c_longlong * 10)(*dims, *kstrides,
                                      _build.DTYPE_CODES[residual.dtype],
                                      keep_code)
-    if len(_BDA_GEOM) >= _BDA_GEOM_MAX:
-        _BDA_GEOM.clear()
-    _BDA_GEOM[key] = geom
-    return geom
+    return _build.remember(_BDA_GEOM, key, geom)
 
 
 def bias_dropout_add_cuda(x: torch.Tensor, b: torch.Tensor | None,

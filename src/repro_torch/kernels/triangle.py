@@ -135,35 +135,77 @@ def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
     return out, mean, inv
 
 
+# (a, b_full, mask_a, mask_b, w, bias: shape, stride, dtype) -> (B, S, I,
+# J, C, D, dtype code).
+_OPM_GEOM: dict = {}
+
+
+def _opm_geometry(fn, a, b_full, mask_a, mask_b, w, bias, key):
+    """The checks that depend only on shapes, layouts and dtypes, made once
+    per distinct ``key``; returns the launch geometry, cached under it."""
+    if a.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{fn}: dtype {a.dtype} not in {tuple(_build.DTYPE_CODES)}")
+    if a.ndim != 4 or b_full.ndim != 4 or w.ndim != 2:
+        raise ValueError(f"{fn}: a {tuple(a.shape)}, b_full {tuple(b_full.shape)}"
+                         f" and w {tuple(w.shape)} must be 4, 4 and 2-d")
+    bsz, ns, ni, c = a.shape
+    nj, d = b_full.shape[2], w.shape[-1]
+    if c not in OPM_C or d not in OPM_D:
+        raise ValueError(f"{fn}: channel widths C={c}, D={d} not in {OPM_C} x "
+                         f"{OPM_D}")
+    # fp32: a (J/4, I/4, B) grid; bf16: one persistent block an SM over
+    # the 8 x 8-pixel tiles.
+    if a.dtype == torch.float32 and (bsz > _build.MAX_GRID_YZ
+                                     or -(-ni // 4) > _build.MAX_GRID_YZ):
+        raise ValueError(f"{fn}: B={bsz}, I={ni} outside the kernel's grid")
+    if bsz * -(-ni // 8) * -(-nj // 8) >= 2 ** 31:
+        raise ValueError(f"{fn}: B={bsz}, I={ni}, J={nj}: too many tiles")
+    # Devices are checked on every call, not here.
+    dt, f32 = a.dtype, torch.float32
+    for name, t, shape, dtype in (
+            ("a", a, a.shape, dt), ("b_full", b_full, (bsz, ns, nj, c), dt),
+            ("mask_a", mask_a, (bsz, ns, ni), f32),
+            ("mask_b", mask_b, (bsz, ns, nj), f32),
+            ("w", w, (c * c, d), dt), ("bias", bias, (d,), f32)):
+        _check(f"{fn} {name}", t, shape, dtype, t.device)
+    return _build.remember(_OPM_GEOM, key, (bsz, ns, ni, nj, c, d,
+                                            _build.DTYPE_CODES[dt]))
+
+
+def _opm_checked(fn, *ts):
+    """The geometry of a call: cached under the shapes, strides and dtypes
+    of its tensors, so that a layout or dtype not seen before is checked."""
+    key = tuple((t.shape, t.stride(), t.dtype) for t in ts)
+    geom = _OPM_GEOM.get(key)
+    return geom if geom is not None else _opm_geometry(fn, *ts, key)
+
+
 def fused_opm_cuda(a, b_full, mask_a, mask_b, w, bias):
     """(vec(sum_s a[s,i] ⊗ b[s,j]) / (sum_s mask_a·mask_b + 1e-3)) @ w + bias,
     one kernel.
 
     a: (B, S, I, C), b_full: (B, S, J, C), masked, contiguous, fp32 or
     bf16; mask_a (B, S, I), mask_b (B, S, J) fp32 contiguous; w: (C*C, D)
-    contiguous in a's dtype; bias: (D,) fp32. C in ``OPM_C``, D in
-    ``OPM_D``. Returns (B, I, J, D) in a's dtype."""
+    contiguous in a's dtype; bias: (D,) fp32; all on one device, and in
+    bf16 a, b_full and w 16-byte aligned (the kernel reads them through
+    TMA). C in ``OPM_C``, D in ``OPM_D``. Returns (B, I, J, D) in a's dtype.
+    The checks that depend only on shapes, strides and dtypes run once per
+    distinct combination (``_opm_geometry``)."""
     fn = "fused_opm_cuda"
-    _check_input(fn, a)
-    bsz, ns, ni, c = a.shape
-    nj, d = b_full.shape[2], w.shape[-1]
-    if c not in OPM_C or d not in OPM_D:
-        raise ValueError(f"{fn}: channel widths C={c}, D={d} not in {OPM_C} x "
-                         f"{OPM_D}")
-    if bsz > _build.MAX_GRID_YZ or -(-ni // 4) > _build.MAX_GRID_YZ:
-        raise ValueError(f"{fn}: B={bsz}, I={ni} outside the kernel's grid")
-    dt, dev, f32 = a.dtype, a.device, torch.float32
-    _check(f"{fn} a", a, a.shape, dt, dev)
-    _check(f"{fn} b_full", b_full, (bsz, ns, nj, c), dt, dev)
-    _check(f"{fn} mask_a", mask_a, (bsz, ns, ni), f32, dev)
-    _check(f"{fn} mask_b", mask_b, (bsz, ns, nj), f32, dev)
-    _check(f"{fn} w", w, (c * c, d), dt, dev)
-    _check(f"{fn} bias", bias, (d,), f32, dev)
-    out = torch.empty((bsz, ni, nj, d), dtype=dt, device=dev)
+    if not a.is_cuda:
+        raise ValueError(f"{fn} needs CUDA tensors, got {a.device}")
+    ts = (a, b_full, mask_a, mask_b, w, bias)
+    bsz, ns, ni, nj, c, d, code = _opm_checked(fn, *ts)
+    dev = a.get_device()
+    if any(t.get_device() != dev for t in ts[1:]):
+        raise ValueError(f"{fn}: every input must be on {a.device}")
+    ap, bp, wp = a.data_ptr(), b_full.data_ptr(), w.data_ptr()
+    if code == 1 and (ap | bp | wp) % 16:
+        raise ValueError(f"{fn}: a, b_full and w must be 16-byte aligned")
+    out = torch.empty((bsz, ni, nj, d), dtype=a.dtype, device=a.device)
     err = _build.entry("outer_product_mean")(
-        a.data_ptr(), b_full.data_ptr(), mask_a.data_ptr(), mask_b.data_ptr(),
-        w.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, ns, ni, nj, c, d,
-        _build.DTYPE_CODES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        ap, bp, mask_a.data_ptr(), mask_b.data_ptr(), wp, bias.data_ptr(),
+        out.data_ptr(), bsz, ns, ni, nj, c, d, code, _build.stream_handle(a))
     _build.check("outer_product_mean", err)
     return out
 

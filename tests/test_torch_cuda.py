@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_attention import (copy_for_kernel,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
 from repro_torch.kernels.fused_softmax import fused_softmax_cuda
+from repro_torch.kernels.layer_norm import layer_norm_cuda, ln_partition
 from repro_torch.kernels.triangle import (fused_opm_cuda, fused_triangle_cuda,
                                           triangle_workspace)
 
@@ -48,6 +49,33 @@ def test_layer_norm_kernel(gen, shape, dtype, tol):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["layer_norm"] == 1
     _close(got, ref.layer_norm_ref(x, gamma, beta), tol)
+
+
+# Both variants of the LayerNorm kernel: rows of 16-byte vectors in
+# registers (C = 16, 128, 256, 384: 2, 16, 32 and 16 lanes a row), and the
+# loop for C = 1000 (not whole vectors in bf16, too many in fp32) and
+# 32768; 1001 rows is no multiple of the rows a block takes (16 to 256).
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,vector", [
+    ((1001, 16), True), ((1001, 128), True), ((7, 143, 256), True),
+    ((1001, 384), True), ((37, 1000), False), ((3, 32768), False)])
+def test_layer_norm_kernel_variants(gen, shape, vector, dtype, tol):
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+    assert (ln_partition(c, x.element_size()) is not None) == vector
+    _build.reset_launches()
+    got = layer_norm_cuda(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["layer_norm"] == 1
+    _close(got, ref.layer_norm_ref(x, gamma, beta), tol)
+    # A view 2 or 4 bytes off a 16-byte boundary takes the loop kernel.
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    xm = flat[1:].view(shape)
+    xm.copy_(x)
+    _close(layer_norm_cuda(xm, gamma, beta), ref.layer_norm_ref(x, gamma, beta), tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -337,6 +365,54 @@ def test_outer_product_mean_kernel(gen, bsz, ns, ni, nj, c, d, dtype, tol):
     assert _build.LAUNCHES["outer_product_mean"] == 1
     _close(out, ref.outer_product_mean_ref(a, b, mask, mask_b, w, bias), tol)
     _close(out[:, 3], bias.to(dtype).expand_as(out[:, 3]), 0.0)
+
+
+# The bf16 kernel on wgmma at the main path's calls (FULL widths, r = 256
+# and 384) and off them: B = 2, I and J off the 8-pixel tile, S off the
+# 32-row stage and below it, the MINI widths and C != D pairs.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bsz,ns,ni,nj,c,d", [
+    (1, 128, 256, 256, 32, 128),
+    (1, 128, 384, 384, 32, 128),
+    (2, 37, 21, 19, 32, 128),
+    (2, 40, 30, 26, 16, 32),
+    (1, 8, 20, 20, 16, 128),
+    (1, 70, 17, 40, 32, 32),
+])
+def test_outer_product_mean_kernel_main_path(gen, bsz, ns, ni, nj, c, d, dtype,
+                                             tol):
+    nr = max(ni, nj)
+    mask = (torch.rand((bsz, ns, nr), generator=gen, device="cuda") < 0.9).float()
+    mask[:, 2] = 0.0                         # a fully masked MSA row
+    mask[..., 5] = 0.0                       # a residue masked in every row
+    mask_a, mask_b = mask[..., :ni].contiguous(), mask[..., :nj].contiguous()
+    a = _randn(gen, (bsz, ns, ni, c), 1.0, dtype) * mask_a[..., None].to(dtype)
+    b = _randn(gen, (bsz, ns, nj, c), 1.0, dtype) * mask_b[..., None].to(dtype)
+    w = _randn(gen, (c * c, d), 1.0 / c, dtype)
+    bias = _randn(gen, (d,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    out = fused_opm_cuda(a, b, mask_a, mask_b, w, bias)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert _build.LAUNCHES["outer_product_mean"] == 1
+    # Nothing beyond the output (rounded up to the allocator's 512 bytes).
+    assert peak <= out.numel() * out.element_size() + 512, peak
+    _close(out, ref.outer_product_mean_ref(a, b, mask_a, mask_b, w, bias), tol)
+    _close(out[:, 5], bias.to(dtype).expand_as(out[:, 5]), 0.0)
+    _close(out[:, :, 5], bias.to(dtype).expand_as(out[:, :, 5]), 0.0)
+
+
+def test_outer_product_mean_refuses_misaligned_bf16(gen):
+    flat = torch.zeros(8 * 9 * 32 + 8, dtype=torch.bfloat16, device="cuda")
+    am = flat[1:1 + 8 * 9 * 32].view(1, 8, 9, 32)    # 2 bytes off 16
+    ones = torch.ones((1, 8, 9), device="cuda")
+    w = _randn(gen, (32 * 32, 128), 1.0 / 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_opm_cuda(am, am, ones, ones, w, torch.zeros(128, device="cuda"))
 
 
 def test_triangle_and_opm_refuse_other_widths(gen):
