@@ -404,8 +404,20 @@ def survey_phase(torch, tree, batches):
              mask is not None, scale, str(x.dtype)[6:]), where[0])
         return orig[7](x, bias, mask, scale)
 
+    # Whether ``ops._bsm_fwd``'s ``g.contiguous()`` / ``v.contiguous()``
+    # copy at a main-path call: the gate's inputs as they reach it.
+    gate_layouts = {}
+    bsm_fwd = ops._bsm_fwd
+
+    def gate_fwd(g, bg, v, kernel):
+        gate_layouts.setdefault(
+            (tuple(v.shape), g.stride(), v.stride(), str(v.dtype)[6:]),
+            g.is_contiguous() and v.is_contiguous())
+        return bsm_fwd(g, bg, v, kernel)
+
     for n, fn in zip(names, (ln, bsm, attn, tri, opm, attn_bwd, bda, softmax)):
         setattr(ops, n, fn)
+    ops._bsm_fwd = gate_fwd
     metrics = {}
     try:
         for plan in ("default", "attention-oracle"):
@@ -428,9 +440,12 @@ def survey_phase(torch, tree, batches):
     finally:
         for n, fn in zip(names, orig):
             setattr(ops, n, fn)
+        ops._bsm_fwd = bsm_fwd
     emit({"phase": "survey", "cut": {"n_blocks": 1, "n_recycle": 0},
           "train_step": metrics,
-          "distinct_calls": {k: len(v) for k, v in seen.items()}})
+          "distinct_calls": {k: len(v) for k, v in seen.items()},
+          "gate_layouts": len(gate_layouts),
+          "gate_layouts_copied": sum(not c for c in gate_layouts.values())})
     return seen
 
 
@@ -521,11 +536,16 @@ def kernel_phase(torch, timer, seen):
         record("layer_norm", case, dt, shape, got, want, timing,
                {"main_path": main})
 
-    # --- K2 bias·sigmoid·mul.
-    def check_bsm(case, shape, dt, main):
+    # --- K2 bias·sigmoid·mul. ``offset``: g and v are views that many
+    # elements into their buffers (off the 16-byte vectors where it is not
+    # a multiple of them: the scalar variant).
+    def check_bsm(case, shape, dt, main, offset=0):
         c = shape[-1]
-        g = randn(shape, dt, 2.0)
-        v = randn(shape, dt)
+        numel = 1
+        for d in shape:
+            numel *= d
+        g = randn((numel + offset,), dt, 2.0)[offset:].view(shape)
+        v = randn((numel + offset,), dt)[offset:].view(shape)
         bg = randn((c,), "float32")
         got = bias_sigmoid_mul_cuda(g, bg, v)
         want = ref.bias_sigmoid_mul_ref(g, bg, v)
@@ -539,11 +559,15 @@ def kernel_phase(torch, timer, seen):
                 "plain_ms": timer(lambda: ref.bias_sigmoid_mul_ref(g, bg, v)),
                 "library_ms": timer(lambda: torch.sigmoid(g + bg_l) * v),
                 "bound_ms": t_b, "bound_by": by,
-                "host_us": host_us(lambda: bias_sigmoid_mul_cuda(g, bg, v)),
-                "library_host_us": host_us(
-                    lambda: torch.sigmoid(g + bg_l) * v)}
+                **device_timing(bias_sigmoid_mul_cuda, lambda: (
+                    randn(shape, dt, 2.0, g=copies_gen), bg,
+                    randn(shape, dt, g=copies_gen))),
+                **device_timing(lambda g_, b_, v_: torch.sigmoid(g_ + b_) * v_,
+                                lambda: (randn(shape, dt, 2.0, g=copies_gen),
+                                         bg_l, randn(shape, dt, g=copies_gen)),
+                                "library_")}
         record("bias_sigmoid_mul", case, dt, shape, got, want, timing,
-               {"main_path": main})
+               {"main_path": main, "offset": offset})
 
     # --- K5 flash-attention forward. q/k/v are views laid out in memory as
     # the main path lays them out (column slices of the merged projection);
@@ -976,7 +1000,14 @@ def kernel_phase(torch, timer, seen):
                                 "summed beforehand",
                 "composition_ms": timer(lambda: torch.softmax(
                     logits(), -1).to(x.dtype)),
-                "bound_ms": t_b, "bound_by": by}
+                "bound_ms": t_b, "bound_by": by,
+                **device_timing(lambda *a: fused_softmax_cuda(*a, scale),
+                                lambda: (randn(shape, dt, 4.0, g=copies_gen),
+                                         None if bias is None else
+                                         bias.clone(),
+                                         None if mask is None else
+                                         mask.clone())),
+                "library_host_us": host_us(lambda: torch.softmax(pre, -1))}
             del pre
         record("fused_softmax", case, dt, shape, got.masked_fill(nan, 0),
                want0, timing,
@@ -1033,6 +1064,11 @@ def kernel_phase(torch, timer, seen):
         check_ln("odd_c100", (3, 7, 100), dt, False)
         check_ln("c384", (2, 50, 384), dt, False)
         check_bsm("2d", (1000, 72), dt, False)
+        # The scalar variant: C % 8 != 0, and a view one element off the
+        # 16-byte vectors; two vectors a thread at C = 384 (bf16).
+        check_bsm("c12_scalar", (50, 12), dt, False)
+        check_bsm("misaligned_view", (64, 256), dt, False, offset=1)
+        check_bsm("c384", (40, 384), dt, False)
         # (case, N, Sq, Skv, H, D, B, mask, fully masked rows, G): Sq and
         # Skv off the 64-row tiles, Sq < 16, rep 1, rep > G, D 16 with G,
         # a bias slice too wide to stage; G None is the wrapper's choice.
@@ -1105,8 +1141,10 @@ def kernel_phase(torch, timer, seen):
                  0.5)]:
             check_bda(case, shape, kshape, wb, kdt, rate, dt, False)
         # (case, (N, H, R, C), B, mask, -1e9 rows, -inf rows): no bias, no
-        # mask, rep 1, C = 1, ragged C = 200 and 999 (warp per row), 3000
-        # and 16384 (block per row), rows masked with -1e9 and with -inf.
+        # mask, rep 1, C = 1, ragged C = 200 (vectors predicated) and 999
+        # (one element at a time), 1025, 3000 and 16384 (block per row),
+        # rows masked with -1e9 and with -inf, runs of rows that cross an n
+        # (H*R = 15, two rows a warp at C = 128), 16 lanes a row at C = 384.
         for case, shape, nb, wm, nm, ni in [
                 ("no_bias", (8, 4, 64, 128), 0, True, 2, 0),
                 ("no_mask", (6, 2, 50, 96), 3, False, 0, 0),
@@ -1117,7 +1155,10 @@ def kernel_phase(torch, timer, seen):
                 ("c3000_block_per_row", (2, 2, 8, 3000), 2, True, 1, 0),
                 ("c16384", (2, 1, 4, 16384), 1, True, 1, 0),
                 ("masked_rows_1e9", (8, 2, 16, 256), 2, True, 4, 0),
-                ("masked_rows_inf", (8, 2, 16, 256), 2, True, 0, 3)]:
+                ("masked_rows_inf", (8, 2, 16, 256), 2, True, 0, 3),
+                ("c128_runs_cross_n", (7, 3, 5, 128), 7, True, 1, 1),
+                ("c384_16_lanes", (6, 2, 30, 384), 2, True, 1, 1),
+                ("c1025_block_per_row", (2, 2, 4, 1025), 1, True, 1, 0)]:
             check_softmax(case, shape, nb, wm, 32 ** -0.5, dt, False, nm, ni)
     return results
 
@@ -1628,11 +1669,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "flags": _build.NVCC_FLAGS})
-    # Registers, spills and static shared memory of K1's two variants, the
-    # tensor-core kernels (K5, K6, K7, K8) and K3 (dynamic shared memory is
-    # sized at launch: see their sources).
-    for k in ("layer_norm", "flash_attention_fwd", "flash_attention_bwd",
-              "triangle_mult", "outer_product_mean", "bias_dropout_add"):
+    # Registers, spills and static shared memory of every kernel's entries
+    # (dynamic shared memory is sized at launch: see their sources).
+    for k in SOURCES:
         emit({"phase": "ptxas", "source": SOURCES[k][0],
               "entries": ptxas_report(_build.BUILD_LOG.get(k, ""))})
 

@@ -8,6 +8,7 @@ on the GPU (PyTorch port).
     PYTHONPATH=src python scripts/torch_profile_serve.py --attention --n-res 256 384
     PYTHONPATH=src python scripts/torch_profile_serve.py --triangle-dropout --n-res 256 384
     PYTHONPATH=src python scripts/torch_profile_serve.py --opm-layernorm --n-res 256 384
+    PYTHONPATH=src python scripts/torch_profile_serve.py --gate-softmax --n-res 256 384 [--parent DIR]
 
 ``--plan`` names the ExecutionPlan the model runs under: a preset
 (default, oracle, interpret, triangle-oracle) or ``attention-oracle``,
@@ -60,6 +61,20 @@ pair (1, r, r, 128) and single (1, r, 384) rows, beside ``F.layer_norm``.
 Each row carries the least time for the work (the bytes at 3.35 TB/s or
 the operations at 989 TFLOP/s, the larger).
 
+With ``--gate-softmax`` it profiles K2 ``bias_sigmoid_mul_cuda`` and K4
+``fused_softmax_cuda`` alone, bf16, the same two ways, at the main path's
+calls for each residue count: K2 at the MSA-row gate (1, s, r, 256) and
+the pair gate (1, r, r, 128); K4 at the MSA row (s, 8, r, r; a pair bias
+shared by the s rows), MSA column (r, 8, s, s; no bias) and triangle (r, 4,
+r, r; a bias shared by the r rows) softmaxes, each with a key mask that
+drops a tenth of the keys. Beside each: the library call (``sigmoid(g +
+bg) * v``; ``torch.softmax`` on fp32 logits summed beforehand, which is
+not the same function) and, with ``--parent DIR`` (the root of another
+checkout of this repository, e.g. ``git archive`` of the parent commit
+unpacked into an ignored directory), that checkout's own wrapper and
+kernel, built from its sources into its own ``build/kernels/``, timed in
+the order parent, this tree, this tree, parent.
+
 With ``--train`` it does the same for one step of
 ``make_train_step(FastFold(FULL).loss_fn)`` (the port's own init, bf16,
 remat per block, dropout from a seeded generator) after a warm-up step, and
@@ -88,6 +103,7 @@ import json
 import subprocess
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -114,7 +130,7 @@ PORT_KERNELS = {
     "layer_norm_vec_kernel": "K1 layer_norm",
     "bias_sigmoid_mul_kernel": "K2 bias_sigmoid_mul",
     "bias_dropout_add_kernel": "K3 bias_dropout_add",
-    "softmax_warp_kernel": "K4 fused_softmax",
+    "softmax_rows_kernel": "K4 fused_softmax",
     "softmax_block_kernel": "K4 fused_softmax",
     "flash_fwd_mma_kernel": "K5 flash_attention_fwd",
     "flash_fwd_fp32_kernel": "K5 flash_attention_fwd",
@@ -525,6 +541,121 @@ def opm_layernorm_profile(n_res_list, n_seq: int, seed: int,
             print(json.dumps(row), flush=True)
 
 
+def load_parent(root: str):
+    """Another checkout's K2 and K4 wrappers, bound to its own ``_build``
+    (its kernels' C interfaces, built from its sources into its own
+    ``build/kernels/``): {"bias_sigmoid_mul": fn, "fused_softmax": fn}."""
+    import importlib.util
+    import sys
+
+    kernels = Path(root).resolve() / "src" / "repro_torch" / "kernels"
+
+    def load(stem):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{stem}", kernels / f"{stem}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    build = load("_build")
+    sys.modules["parent__build"] = build
+    fe, fs = load("fused_elementwise"), load("fused_softmax")
+    fe._build = fs._build = build
+    for name in ("bias_sigmoid_mul", "fused_softmax"):
+        build.entry(name)              # builds it, with nvcc's report
+    return {"bias_sigmoid_mul": fe.bias_sigmoid_mul_cuda,
+            "fused_softmax": fs.fused_softmax_cuda}
+
+
+def gate_softmax_profile(n_res_list, n_seq: int, seed: int, smi: str,
+                         parent: str | None) -> None:
+    """K2 and K4 alone at the main path's calls (see the module
+    docstring): per call, for this tree's wrapper, the parent's where
+    given, and the library call, the device time after the flush and on
+    cold inputs and the host time of a call; the least time for the work."""
+    from repro_torch.kernels.fused_elementwise import bias_sigmoid_mul_cuda
+    from repro_torch.kernels.fused_softmax import fused_softmax_cuda
+
+    evo = FULL.evoformer
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+    theirs = load_parent(parent) if parent else None
+
+    def randn(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def bound_ms(bytes_moved):
+        return bytes_moved / 3.35e12 * 1e3
+
+    ours = {"bias_sigmoid_mul": bias_sigmoid_mul_cuda,
+            "fused_softmax": fused_softmax_cuda}
+
+    def timed(row, name, make_args, library, make_library_args):
+        """Parent, this tree, this tree, parent; then the library call."""
+        runs = [(name, ours[name])]
+        if theirs is not None:
+            runs = ([(f"parent_{name}", theirs[name])] + runs
+                    + [(f"{name}_again", ours[name]),
+                       (f"parent_{name}_again", theirs[name])])
+        for label, fn in runs:
+            timed_call(label, fn, make_args, row, flush)
+        timed_call("library", library, make_library_args, row, flush)
+        print(json.dumps(row), flush=True)
+
+    for r in n_res_list:
+        for site, shape in (("msa_row_gate", (1, n_seq, r, evo.d_msa)),
+                            ("pair_gate", (1, r, r, evo.d_pair))):
+            c = shape[-1]
+
+            def make_gate_args():
+                return (randn(shape, 2.0), randn((c,), 1.0, torch.float32),
+                        randn(shape))
+
+            g, bg, v = make_gate_args()
+            row = {"device": smi, "kernel": "bias_sigmoid_mul", "site": site,
+                   "n_res": r, "shape": list(shape), "dtype": "bfloat16",
+                   "bound_ms": bound_ms(3 * nbytes(g) + nbytes(bg)),
+                   "library_call": "torch.sigmoid(g + bg) * v"}
+            del g, bg, v
+            timed(row, "bias_sigmoid_mul", make_gate_args,
+                  lambda g, bg, v: torch.sigmoid(g + bg) * v, make_gate_args)
+        # (site, N, H, R = C, bias batches): the key mask drops a tenth of
+        # the keys of every row n.
+        for site, n, h, c, nb in (("msa_row", n_seq, evo.msa_heads, r, 1),
+                                  ("msa_col", r, evo.msa_heads, n_seq, 0),
+                                  ("triangle", r, evo.pair_heads, r, 1)):
+            scale = evo.head_dim ** -0.5
+
+            def make_softmax_args():
+                mask = torch.where(torch.rand((n, c), generator=gen,
+                                              device="cuda") < 0.9, 0.0, -1e9)
+                return (randn((n, h, c, c), 4.0),
+                        randn((nb, h, c, c)) if nb else None, mask.float(),
+                        scale)
+
+            def logits(x, bias, mask, scale):
+                acc = x.float() * scale
+                if bias is not None:
+                    acc = acc + bias.float()
+                return acc + mask.view(n, 1, 1, c)
+
+            def make_library_args():
+                return (logits(*make_softmax_args()),)
+
+            x, bias, mask, _ = make_softmax_args()
+            row = {"device": smi, "kernel": "fused_softmax", "site": site,
+                   "n_res": r, "shape": [n, h, c, c], "bias": bool(nb),
+                   "dtype": "bfloat16",
+                   "bound_ms": bound_ms(2 * nbytes(x) + nbytes(bias, mask)),
+                   "library_call": "torch.softmax(fp32 logits, -1), the "
+                                   "logits summed beforehand"}
+            del x, bias, mask
+            timed(row, "fused_softmax", make_softmax_args,
+                  lambda a: torch.softmax(a, -1), make_library_args)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-res", type=int, nargs="+", default=[256])
@@ -541,6 +672,12 @@ def main() -> None:
     ap.add_argument("--opm-layernorm", action="store_true",
                     help="profile the outer-product-mean (K8) and LayerNorm "
                          "(K1) kernels alone")
+    ap.add_argument("--gate-softmax", action="store_true",
+                    help="profile the gating (K2) and fused softmax (K4) "
+                         "kernels alone")
+    ap.add_argument("--parent", default=None,
+                    help="with --gate-softmax: the root of another checkout "
+                         "whose K2 and K4 are timed beside this tree's")
     ap.add_argument("--plan", choices=sorted(PLANS), default="default",
                     help="the ExecutionPlan the model runs under")
     args = ap.parse_args()
@@ -558,6 +695,10 @@ def main() -> None:
         return
     if args.opm_layernorm:
         opm_layernorm_profile(args.n_res, args.n_seq, args.seed, smi)
+        return
+    if args.gate_softmax:
+        gate_softmax_profile(args.n_res, args.n_seq, args.seed, smi,
+                             args.parent)
         return
     ff = FastFold(FULL, plan=PLANS[args.plan])
     if args.train:

@@ -48,7 +48,9 @@ SIGNATURES = {
         _c_int, _c_void_p]),                          # dtype, stream
     "bias_sigmoid_mul": ("bias_sigmoid_mul_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # g, bg, v, out
-        _c_ll, _c_int, _c_int, _c_void_p]),            # numel, C, dtype, stream
+        _c_ll, _c_int,                                # rows, C
+        _c_int, _c_int,                               # elements a vector, lanes a row (log2)
+        _c_int, _c_void_p]),                          # dtype, stream
     "flash_attention_fwd": ("flash_attention_fwd", [
         _c_void_p, _c_void_p, _c_void_p,              # q, k, v
         _c_void_p, _c_void_p,                         # bias, mask (or NULL)
@@ -91,8 +93,8 @@ SIGNATURES = {
         _c_float, _c_void_p]),                        # 1-rate, stream
     "fused_softmax": ("fused_softmax_fwd", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # x, bias, mask (or NULL), out
-        _c_ll, _c_ll, _c_int, _c_int,                 # rows, H*R, rep, C
-        _c_float, _c_int, _c_int, _c_void_p]),        # scale, dtype, aligned, stream
+        _c_void_p,                                    # geometry: 9 long longs
+        _c_float, _c_void_p]),                        # scale, stream
 }
 
 # The kernels' dtype argument.

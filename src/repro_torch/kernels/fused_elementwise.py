@@ -4,7 +4,8 @@
 They replace ``bias_sigmoid_mul_pallas`` and ``bias_dropout_add_pallas``
 (src/repro/kernels/fused_elementwise.py). The wrappers take CUDA tensors
 only; ``ops.bias_sigmoid_mul`` and ``ops.bias_dropout_add`` route CPU tensors
-to the plain versions.
+to the plain versions. The gating kernel has two variants behind one
+launch, 16-byte vectors and one element at a time (``gate_partition``).
 """
 from __future__ import annotations
 
@@ -15,7 +16,24 @@ import torch
 from repro_torch.kernels import _build
 
 
-# (g, bg, v: shape, stride, dtype) -> (numel, C, dtype code).
+WARP = 32
+
+
+def gate_partition(c: int, itemsize: int, aligned: bool) -> tuple[int, int]:
+    """How the gating kernel covers a row of ``c`` channels: (elements a
+    vector, threads a row). 16-byte vectors (8 bf16, 4 fp32) where
+    ``aligned`` (every pointer 16-byte aligned) and C is whole vectors,
+    else one element at a time; over the least power of two of threads, up
+    to 32, that holds the row's vectors (32 at C = 256 and 16 at C = 128
+    in bf16), thread t of a row taking its vectors t, t + threads, ..."""
+    per_vec = 16 // itemsize
+    vec = per_vec if aligned and c % per_vec == 0 else 1
+    return vec, min(WARP, 1 << (c // vec - 1).bit_length())
+
+
+# (g, bg, v: shape, stride, dtype) -> (rows, C, dtype code, the vector
+# partition, the scalar partition), each partition (elements a vector,
+# threads a row as log2).
 _BSM_GEOM: dict = {}
 
 
@@ -34,8 +52,12 @@ def _bsm_geometry(fn, g, bg, v, key):
     if (c <= 0 or bg.shape != (c,) or bg.dtype != torch.float32
             or not bg.is_contiguous()):
         raise ValueError(f"{fn}: bg must be a contiguous fp32 ({c},) tensor")
-    return _build.remember(_BSM_GEOM, key,
-                           (v.numel(), c, _build.DTYPE_CODES[v.dtype]))
+    parts = []
+    for aligned in (True, False):
+        vec, threads = gate_partition(c, v.element_size(), aligned)
+        parts.append((vec, threads.bit_length() - 1))
+    return _build.remember(_BSM_GEOM, key, (
+        v.numel() // c, c, _build.DTYPE_CODES[v.dtype], *parts))
 
 
 def _bsm_checked(fn, g, bg, v):
@@ -52,18 +74,22 @@ def bias_sigmoid_mul_cuda(g: torch.Tensor, bg: torch.Tensor,
     """sigmoid(g + bg) * v: g and v contiguous CUDA tensors of one shape and
     dtype (fp32 or bf16), bg a (C,) fp32 tensor on the same device. Output
     in v's dtype. The checks that depend only on shapes, strides and dtypes
-    run once per distinct combination (``_bsm_geometry``)."""
+    run once per distinct combination (``_bsm_geometry``); those of devices
+    and alignment (16-byte vectors, or one element at a time) every call."""
     fn = "bias_sigmoid_mul_cuda"
     if not v.is_cuda:
         raise ValueError(f"{fn} needs a CUDA tensor, got {v.device}")
-    numel, c, code = _bsm_checked(fn, g, bg, v)
+    rows, c, code, vec_part, scalar_part = _bsm_checked(fn, g, bg, v)
     dev = v.get_device()
     if g.get_device() != dev or bg.get_device() != dev:
         raise ValueError(f"{fn}: g and bg must be on {v.device}")
+    gp, bp, vp = g.data_ptr(), bg.data_ptr(), v.data_ptr()
+    # The output is a fresh allocation, so aligned.
+    vec, lanes_log2 = vec_part if not (gp | bp | vp) % 16 else scalar_part
     out = torch.empty_like(v)
     err = _build.entry("bias_sigmoid_mul")(
-        g.data_ptr(), bg.data_ptr(), v.data_ptr(), out.data_ptr(), numel, c,
-        code, _build.stream_handle(v))
+        gp, bp, vp, out.data_ptr(), rows, c, vec, lanes_log2, code,
+        _build.stream_handle(v))
     _build.check("bias_sigmoid_mul", err)
     return out
 

@@ -15,8 +15,12 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (copy_for_kernel,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
-from repro_torch.kernels.fused_elementwise import bias_dropout_add_cuda
-from repro_torch.kernels.fused_softmax import fused_softmax_cuda
+from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
+                                                   bias_sigmoid_mul_cuda,
+                                                   gate_partition)
+from repro_torch.kernels.fused_softmax import (fused_softmax_cuda,
+                                               softmax_partition,
+                                               softmax_steps)
 from repro_torch.kernels.layer_norm import layer_norm_cuda, ln_partition
 from repro_torch.kernels.triangle import (fused_opm_cuda, fused_triangle_cuda,
                                           triangle_workspace)
@@ -87,6 +91,41 @@ def test_bias_sigmoid_mul_kernel(gen, shape, dtype, tol):
     bg = torch.randn(shape[-1], generator=gen, device="cuda")
     _build.reset_launches()
     got = ops.bias_sigmoid_mul(g, bg, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bias_sigmoid_mul"] == 1
+    _close(got, ref.bias_sigmoid_mul_ref(g, bg, v), tol)
+
+
+def _view(gen, shape, offset, dtype, scale=1.0):
+    """A contiguous view ``offset`` elements into a fresh buffer."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    buf = torch.randn(numel + offset, generator=gen, device="cuda") * scale
+    return buf.to(dtype)[offset:].view(shape)
+
+
+# Both variants of the gating kernel in one launch: 16-byte vectors (C whole
+# vectors, every pointer aligned; two a thread at C = 384 in bf16 and 256 in
+# fp32) and one element at a time (C % 8 != 0 in bf16, a view off the
+# vectors); z at +-100 where 2**x overflows.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,offset", [
+    ((64, 256), 0), ((64, 256), 1), ((33, 12), 0), ((10, 384), 0),
+    ((2, 16, 12, 32), 0), ((5, 16), 3), ((7, 1000), 2)])
+def test_bias_sigmoid_mul_kernel_variants(gen, shape, offset, dtype, tol):
+    c = shape[-1]
+    g = _view(gen, shape, offset, dtype, 4.0)
+    v = _view(gen, shape, offset, dtype)
+    g.view(-1)[:2] = torch.tensor([-100.0, 100.0])
+    bg = torch.randn(c, generator=gen, device="cuda")
+    per_vec = 16 // g.element_size()
+    aligned = (offset * g.element_size()) % 16 == 0
+    vec = gate_partition(c, g.element_size(), aligned)[0]
+    assert vec == (per_vec if aligned and c % per_vec == 0 else 1)
+    _build.reset_launches()
+    got = bias_sigmoid_mul_cuda(g, bg, v)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["bias_sigmoid_mul"] == 1
     _close(got, ref.bias_sigmoid_mul_ref(g, bg, v), tol)
@@ -489,6 +528,51 @@ def test_fused_softmax_kernel(gen, n, h, r, c, nb, bias, mask, dtype, tol):
         if bad is not None and not torch.equal(bad.masked_fill(nan, 0),
                                                want.masked_fill(nan, 0)):
             assert _softmax_err(bad, want, tol) > tol
+
+
+# The rows kernel's runs: H*R odd (15, 7, 31, 1311), no multiple of a run,
+# so runs cross from one n into the next (and with it the mask row and the
+# bias batch); C = 128, two rows a warp (bf16); C = 384, 16 lanes of three
+# vectors (bf16); an n
+# whose mask row is all -inf inside a run beside n that are not; more than
+# one step a warp (68172 rows); a view off the 16-byte vectors (one element
+# at a time).
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("n,h,r,c,nb,inf_n,offset", [
+    (7, 3, 5, 128, 7, 3, 0),
+    (9, 1, 7, 128, 3, 4, 0),
+    (6, 1, 31, 384, 2, 2, 0),
+    (52, 3, 437, 256, 4, 17, 0),
+    (5, 3, 5, 256, 5, 2, 1),
+])
+def test_fused_softmax_kernel_runs(gen, n, h, r, c, nb, inf_n, offset, dtype,
+                                   tol):
+    x = _view(gen, (n, h, r, c), offset, dtype, 4.0)
+    b = (torch.randn((nb, h, r, c), generator=gen, device="cuda") * 2).to(dtype)
+    keep = torch.rand((n, c), generator=gen, device="cuda") < 0.8
+    m = torch.where(keep, 0.0, -1e9).float()
+    m[0] = -1e9
+    m[inf_n] = float("-inf")
+    aligned = (offset * x.element_size()) % 16 == 0
+    part = softmax_partition(c, x.element_size(), aligned)
+    assert (part[2] > 1) == aligned
+    if offset == 0:
+        rows, lanes = n * h * r, part[0]
+        run = softmax_steps(rows, lanes) * 2 * (32 // lanes)
+        assert (h * r) % run != 0
+    _build.reset_launches()
+    got = fused_softmax_cuda(x, b, m, 0.3)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_softmax"] == 1
+    want = ref.softmax_ref(x, b, m, 0.3)
+    nan = torch.isnan(want)
+    assert nan[inf_n].all() and nan.sum() == h * r * c
+    assert torch.equal(torch.isnan(got), nan)
+    assert _softmax_err(got, want, tol) <= tol
+    for bad in (ref.softmax_ref(x, b, None, 0.3),
+                ref.softmax_ref(x, None, m, 0.3)):
+        assert _softmax_err(bad, want, tol) > tol
 
 
 def test_attention_oracle_runs_the_softmax_kernel_with_autograd(gen):

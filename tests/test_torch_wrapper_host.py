@@ -1,11 +1,11 @@
-"""The host side of the LayerNorm (K1), gating (K2) and outer-product-mean
-(K8) wrappers, on the CPU: the kernels themselves run only on the card
-(tests/test_torch_cuda.py).
+"""The host side of the LayerNorm (K1), gating (K2), fused softmax (K4)
+and outer-product-mean (K8) wrappers, on the CPU: the kernels themselves
+run only on the card (tests/test_torch_cuda.py).
 
 Each wrapper refuses a CPU tensor before any other check, then takes the
 checks that depend only on shapes, strides and dtypes from a cache keyed by
-them (``_ln_checked``, ``_bsm_checked``, ``_opm_checked``), so they run
-once per distinct key. These tests call the cached step directly on
+them (``_ln_checked``, ``_bsm_checked``, ``_softmax_checked``,
+``_opm_checked``), so they run once per distinct key. These tests call the cached step directly on
 ``meta`` tensors: a layout or dtype not seen before under a shape already
 seen is checked again and refused, and a refused key is never cached.
 """
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_elementwise as fe
+from repro_torch.kernels import fused_softmax as fs
 from repro_torch.kernels import layer_norm as ln
 from repro_torch.kernels import triangle as tri
 
@@ -86,7 +87,9 @@ def test_bsm_geometry_and_cache():
     g, v, bg = _empty((1, 128, 256, 256), BF16), _empty((1, 128, 256, 256), BF16), _empty((256,))
     fe._BSM_GEOM.clear()
     geom = fe._bsm_checked("f", g, bg, v)
-    assert geom == (128 * 256 * 256, 256, 1)
+    # 32768 rows of 256; 16-byte vectors over 32 threads a row, or one
+    # element at a time over 32 (the call's alignment picks one).
+    assert geom == (128 * 256, 256, 1, (8, 5), (1, 5))
     assert fe._bsm_checked("f", g, bg, v) is geom
     assert len(fe._BSM_GEOM) == 1
 
@@ -113,6 +116,82 @@ def test_bsm_wrapper_refuses_cpu_tensors_before_any_check():
     x = torch.randn(4, 6)
     with pytest.raises(ValueError, match="CUDA"):
         fe.bias_sigmoid_mul_cuda(x, torch.zeros(5), x.half())
+
+
+# ---------------------------------------------------------------------------
+# K4 fused softmax
+# ---------------------------------------------------------------------------
+
+
+def _sm(n=128, h=8, r=256, c=256, nb=1, dt=BF16, mask=True):
+    return (_empty((n, h, r, c), dt), None if nb == 0 else
+            _empty((nb, h, r, c), dt), _empty((n, c)) if mask else None)
+
+
+@pytest.mark.parametrize("n,h,r,c,nb,vec_geom,scalar_geom", [
+    # MSA row: rep 128, 32 lanes a row, runs of 8 pairs of rows.
+    (128, 8, 256, 256, 1, (5, 1, 8, 8), (5, 8, 1, 8)),
+    # MSA column: no bias, 16 lanes a row (two rows a warp).
+    (256, 8, 128, 128, 0, (4, 1, 8, 4), (5, 4, 1, 8)),
+    # Triangle at r = 384: 16 lanes of three vectors.
+    (384, 4, 384, 384, 1, (4, 3, 8, 8), (5, 16, 1, 8)),
+    # A block per row past 1024.
+    (2, 2, 4, 3000, 2, (0, 0, 1, 1), (0, 0, 1, 1)),
+])
+def test_softmax_geometry_and_cache(n, h, r, c, nb, vec_geom, scalar_geom):
+    """The cached geometry as the kernel reads it: rows, H*R, rep, C, dtype
+    code, then (lanes a row as log2, vectors a lane, elements a vector,
+    steps) with 16-byte vectors and one element at a time."""
+    x, bias, mask = _sm(n, h, r, c, nb)
+    fs._SOFTMAX_GEOM.clear()
+    got = fs._softmax_checked("f", x, bias, mask)
+    head = (n * h * r, h * r, n // nb if nb else 1, c, 1)
+    assert [tuple(g) for g in got] == [head + vec_geom, head + scalar_geom]
+    assert fs._softmax_checked("f", x, bias, mask) is got
+    assert len(fs._SOFTMAX_GEOM) == 1
+
+
+def test_softmax_layout_and_dtype_are_checked_again():
+    x, bias, mask = _sm(8, 2, 16, 64, 2)
+    fs._SOFTMAX_GEOM.clear()
+    fs._softmax_checked("f", x, bias, mask)
+    # The same shapes: x laid out (N, H, C, R) and read transposed; the bias
+    # transposed; the bias in fp32; the mask in bf16 or transposed.
+    x_t = _empty((8, 2, 64, 16), BF16).transpose(2, 3)
+    assert x_t.shape == x.shape
+    with pytest.raises(ValueError, match="contiguous"):
+        fs._softmax_checked("f", x_t, bias, mask)
+    with pytest.raises(ValueError, match="bias"):
+        fs._softmax_checked("f", x, _empty((2, 2, 64, 16), BF16).transpose(2, 3),
+                            mask)
+    with pytest.raises(ValueError, match="bias"):
+        fs._softmax_checked("f", x, _empty((2, 2, 16, 64)), mask)
+    with pytest.raises(ValueError, match="mask"):
+        fs._softmax_checked("f", x, bias, _empty((8, 64), BF16))
+    with pytest.raises(ValueError, match="mask"):
+        fs._softmax_checked("f", x, bias, _empty((64, 8)).t())
+    with pytest.raises(ValueError, match="N % B"):
+        fs._softmax_checked("f", x, _empty((3, 2, 16, 64), BF16), mask)
+    with pytest.raises(TypeError, match="dtype"):
+        fs._softmax_checked("f", _empty((8, 2, 16, 64), torch.float16), None,
+                            mask)
+    assert len(fs._SOFTMAX_GEOM) == 1
+    # Without the bias or the mask: new keys, each checked and cached.
+    fs._softmax_checked("f", x, None, mask)
+    fs._softmax_checked("f", x, bias, None)
+    assert len(fs._SOFTMAX_GEOM) == 3
+
+
+@pytest.mark.parametrize("shape", [(4, 0), (2, 3, 4, 0), (1, 1, 2, 16385)])
+def test_softmax_refuses_shapes(shape):
+    with pytest.raises(ValueError, match="C=|N, H, R, C"):
+        fs._softmax_checked("f", _empty(shape, BF16), None, None)
+
+
+def test_softmax_wrapper_refuses_cpu_tensors_before_any_check():
+    x = torch.randn(4, 6)                          # not 4-dim either
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.fused_softmax_cuda(x, x, torch.zeros(3), 0.5)
 
 
 # ---------------------------------------------------------------------------
