@@ -49,7 +49,22 @@ Phases, each printing JSON lines:
   9. train parity — FULL width cut to 2 blocks, no recycling, no dropout,
                fp32, randomised weights, r = 128, s = 64: the gradient of
                every parameter on the card and with ``device="cpu"``, held
-               together, under the default plan and under attention-oracle.
+               together, under the default plan and under attention-oracle;
+ 10. long    — AutoChunk at long sequences, FULL widths cut to 2 blocks, no
+               recycling, s = 128, bf16, through ``FastFold.forward``:
+               (a) attention-oracle at r = 2048 on the card's own budget
+               (its unchunked model exceeds the card), (b) the default plan
+               at r = 2048, (c) attention-oracle at r = 1024 unchunked
+               against AutoChunk at 30% of the unchunked modelled peak,
+               (d) the default plan at r = 1024 with every knob at its
+               smallest candidate against none; each fold's chunk plan,
+               modelled peak with and without its chunks, measured peak
+               (``max_memory_allocated``), seconds and launches (chunks
+               counted), the model held within 2x of the measurement and
+               the chunked outputs within 2e-2 of the unchunked;
+ 11. long kernels — K4 (one chunk of (a)), K5, K7 and K8 at the r = 2048
+               shapes, whole on the card, held against their plain versions
+               on a slice of rows.
 The survey (3) also records every kernel call of one training step cut to
 one block, under both plans, so phase 4 checks the training kernels at the
 training shapes. The last two lines are the card's ``nvidia-smi`` line and
@@ -363,26 +378,26 @@ def survey_phase(torch, tree, batches):
             (tuple(v.shape), str(v.dtype)[6:]), where[0])
         return orig[1](g, bg, v)
 
-    def attn(q, k, v, bias, mask, scale):
+    def attn(q, k, v, bias, mask, scale, **kw):
         seen["flash_attention_fwd"].setdefault(
             (_layout((q, k, v)), None if bias is None else bias.shape[0],
              mask is not None, str(q.dtype)[6:]), where[0])
-        return orig[2](q, k, v, bias, mask, scale)
+        return orig[2](q, k, v, bias, mask, scale, **kw)
 
-    def tri(a_lin, ga, mask, b_full, *rest):
+    def tri(a_lin, ga, mask, b_full, *rest, **kw):
         # a_lin/ga lie in memory as column halves of one projection; the
         # mask of the incoming update is a transposed view.
         seen["triangle_mult"].setdefault(
             (tuple(a_lin.shape), a_lin.stride(), mask.stride(),
              b_full.shape[1], rest[3].shape[-1], str(a_lin.dtype)[6:]),
             where[0])
-        return orig[3](a_lin, ga, mask, b_full, *rest)
+        return orig[3](a_lin, ga, mask, b_full, *rest, **kw)
 
-    def opm(a, b_full, mask_a, mask_b, w, bias):
+    def opm(a, b_full, mask_a, mask_b, w, bias, **kw):
         seen["outer_product_mean"].setdefault(
             (tuple(a.shape), b_full.shape[2], w.shape[-1], str(a.dtype)[6:]),
             where[0])
-        return orig[4](a, b_full, mask_a, mask_b, w, bias)
+        return orig[4](a, b_full, mask_a, mask_b, w, bias, **kw)
 
     def attn_bwd(q, k, v, out, do, lse, bias, mask, scale, need_dmask=False):
         # do is the contiguous cotangent; the mask never needs a gradient.
@@ -1215,26 +1230,43 @@ def check_facts(what: str, plan: str, counts: dict) -> None:
         fail(f"{what} {plan}: launches (got, fixed) {off}")
 
 
-def expected_launches(cfg, passes: int, plan: str = "default") -> dict[str, int]:
+def _chunks(groups: int, chunk: int) -> int:
+    """Sequential chunks of one attention site of ``groups`` groups under
+    ``inference_chunk = chunk``: one where the chunk does not divide."""
+    return groups // chunk if chunk and chunk < groups and groups % chunk == 0 \
+        else 1
+
+
+def expected_launches(cfg, passes: int, plan: str = "default",
+                      shape: tuple[int, int] | None = None) -> dict[str, int]:
     """Launches per forward from the config and the plan: per Evoformer
-    block 10 LayerNorms and 4 attention gates; per attention site the flash
-    attention, or the fused softmax where the site is materialized; per
-    triangle update the fused triangle kernel, or, materialized, its output
-    LayerNorm and gate; per OPM the fused OPM kernel (materialized: none);
-    per pass 2 LayerNorms in recycling and 2 + 2 per iteration in the
-    structure module. The oracle plan launches nothing."""
+    block 10 LayerNorms; per attention site and chunk (``inference_chunk``
+    over the site's groups: s at the MSA row, r at the MSA column and the
+    two triangle sites; ``shape`` = (s, r), needed where the knob is set)
+    one output gate and the flash attention, or the fused softmax where the
+    site is materialized; per triangle update the fused triangle kernel,
+    or, materialized, its output LayerNorm and gate; per OPM the fused OPM
+    kernel (materialized: none); per pass 2 LayerNorms in recycling and
+    2 + 2 per iteration in the structure module. The oracle plan launches
+    nothing."""
     if plan == "oracle":
         return dict.fromkeys(TOL, 0)
-    nb, ni = cfg.evoformer.n_blocks, cfg.structure.n_iterations
+    evo = cfg.evoformer
+    nb, ni = evo.n_blocks, cfg.structure.n_iterations
     f = _fused(cfg, plan)
     tri_ln = 0 if f["triangle"] else 2
+    attn = 4
+    if evo.inference_chunk:
+        s, r = shape
+        attn = (_chunks(s, evo.inference_chunk)
+                + 3 * _chunks(r, evo.inference_chunk))
     return {"layer_norm": passes * ((10 + tri_ln) * nb + 2 + 2 + 2 * ni),
-            "bias_sigmoid_mul": passes * (4 + tri_ln) * nb,
-            "flash_attention_fwd": passes * 4 * nb * f["attention"],
+            "bias_sigmoid_mul": passes * (attn + tri_ln) * nb,
+            "flash_attention_fwd": passes * attn * nb * f["attention"],
             "triangle_mult": passes * 2 * nb * f["triangle"],
             "outer_product_mean": passes * nb * f["opm"],
             "flash_attention_bwd": 0, "bias_dropout_add": 0,
-            "fused_softmax": passes * 4 * nb * (not f["attention"])}
+            "fused_softmax": passes * attn * nb * (not f["attention"])}
 
 
 def expected_train_launches(cfg, plan: str = "default") -> dict[str, int]:
@@ -1638,6 +1670,338 @@ def _slice_tree(tree, n):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: long sequences (AutoChunk)
+# ---------------------------------------------------------------------------
+
+LONG_SHAPE = dict(n_seq=128)
+LONG_BLOCKS = 2
+KNOBS = ("inference_chunk", "opm_chunk", "attn_kv_tile", "tri_k_tile",
+         "opm_s_tile")
+# The smallest candidate of each knob the planner has (memory/autochunk.py).
+SMALLEST_KNOBS = dict(inference_chunk=1, opm_chunk=8, attn_kv_tile=128,
+                      tri_k_tile=16, opm_s_tile=16)
+# Modelled and measured peaks must agree within this factor both ways.
+PEAK_MODEL_FACTOR = 2.0
+# Chunked against unchunked folds, bf16: the module tolerance of the port.
+CHUNK_TOL = 2e-2
+
+
+def long_fold(torch, params, batch, kernels: str, memory: dict, label: str):
+    """One FULL-width fold (2 blocks, no recycling, bf16) through
+    ``FastFold.forward`` under the kernel plan ``kernels`` with the
+    MemoryPolicy fields ``memory``: the AutoChunk plan it resolves (read
+    with the same allocations the forward starts from), the modelled peak
+    with and without its chunks, the measured peak above what was
+    allocated before (``max_memory_allocated``, reset first), the seconds,
+    and the launches against ``expected_launches`` with the chunks counted.
+    Fails unless the outputs are finite and of the expected shapes, the
+    absolute peak stays under the card's memory, and model and measurement
+    agree within ``PEAK_MODEL_FACTOR``. Returns (row, outputs)."""
+    from repro_torch.configs import FULL
+    from repro_torch.core.alphafold import planned_evoformer
+    from repro_torch.exec import FastFold
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.kernels import _build
+    from repro_torch.memory.autochunk import (modeled_evoformer_peak,
+                                              outside_block_bytes,
+                                              site_branches)
+
+    cfg = _cut(FULL, LONG_BLOCKS)
+    plan = plan_of(kernels).with_memory(**memory)
+    ff = FastFold(cfg, plan=plan)
+    dev_batch = ff.batch_to_device(batch)
+    b, s, r = dev_batch["msa"].shape
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with use_plan(plan):
+        evo, chunks, budget = planned_evoformer(cfg, (b, s, r), device="cuda")
+        branches = site_branches(evo, batch=b, n_seq=s, n_res=r,
+                                 device="cuda", dtype=cfg.compute_dtype)
+    outside = sum(outside_block_bytes(
+        evo, batch=b, n_seq=s, n_res=r, dtype=cfg.compute_dtype).values())
+
+    def model(e):
+        return outside + modeled_evoformer_peak(
+            e, batch=b, n_seq=s, n_res=r, dtype=cfg.compute_dtype, **branches)
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = ff.forward(params, dev_batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: _build.LAUNCHES[k] for k in TOL}
+    run_cfg = dataclasses.replace(cfg, evoformer=evo)
+    want = expected_launches(run_cfg, 1, kernels, shape=(s, r))
+    shapes = {"coords": (b, r, 3), "msa_logits": (b, s, r, 23),
+              "distogram_logits": (b, r, r, 64)}
+    finite = all(bool(torch.isfinite(out[k].float()).all()) for k in shapes)
+    shapes_ok = all(tuple(out[k].shape) == v for k, v in shapes.items())
+    unchunked = dataclasses.replace(evo, **dict.fromkeys(KNOBS, 0))
+    measured = peak - base
+    row = {"phase": "long", "case": label, "plan": kernels,
+           "memory_policy": memory, "n_res": r, "n_seq": s,
+           "cut": {"n_blocks": LONG_BLOCKS, "n_recycle": 0},
+           "width": "FULL", "dtype": "bfloat16", "branches": branches,
+           "chunk_plan": chunks.describe() if chunks else None,
+           "knobs": {k: getattr(evo, k) for k in KNOBS},
+           "card_total_bytes": total, "allocated_before_bytes": base,
+           "planner_budget_bytes": budget, "outside_block_bytes": outside,
+           "modeled_peak_bytes": model(evo),
+           "modeled_peak_unchunked_bytes": model(unchunked),
+           "measured_peak_bytes": measured, "max_memory_allocated": peak,
+           "model_over_measured": model(evo) / measured,
+           "seconds": secs, "launches": counts, "expected_launches": want,
+           "finite": finite, "shapes_ok": shapes_ok}
+    emit(row)
+    if not (finite and shapes_ok):
+        fail(f"long {label}: outputs not finite or misshapen")
+    if peak > total:
+        fail(f"long {label}: peak {peak} above the card's {total} bytes")
+    if counts != want:
+        fail(f"long {label}: launches {counts} != expected {want}")
+    if not 1 / PEAK_MODEL_FACTOR <= row["model_over_measured"] \
+            <= PEAK_MODEL_FACTOR:
+        fail(f"long {label}: modelled peak {model(evo)} and measured "
+             f"{measured} differ by more than {PEAK_MODEL_FACTOR}x")
+    return row, out
+
+
+def _agree(label, got, want, tol=CHUNK_TOL):
+    """Every output of two folds within tol * max(1, max|want|)."""
+    diffs = {}
+    for k in ("coords", "msa_logits", "distogram_logits", "msa", "pair"):
+        diffs[k] = rel_err(got[k].float(), want[k].float())[1]
+    if max(diffs.values()) > tol:
+        fail(f"long {label}: chunked and unchunked folds disagree {diffs}")
+    return diffs
+
+
+def long_phase(torch, tree):
+    """AutoChunk on the card: FULL widths cut to 2 blocks (one block sets
+    the peak), no recycling, batch 1, s = 128, bf16, weights from the seed.
+    (a) attention-oracle at r = 2048 with the card's own budget, whose
+    unchunked model exceeds the card; (b) the default plan at r = 2048;
+    (c) attention-oracle at r = 1024 unchunked against AutoChunk at a
+    budget of 30% of the unchunked modelled peak; (d) the default plan at
+    r = 1024 with every knob at its smallest candidate against none.
+    Returns the chunk size of (a), for the kernel checks at its shapes."""
+    from repro_torch.data import protein_batches
+    from repro_torch.weights import params_from_numpy
+
+    params = params_from_numpy(dict(tree, evoformer=_slice_tree(
+        tree["evoformer"], LONG_BLOCKS)), device="cuda")
+    batches = {r: next(protein_batches(batch=1, n_res=r, seed=SEED + 9,
+                                       **LONG_SHAPE)).as_dict()
+               for r in (2048, 1024)}
+    rows = {}
+    rows["a"], out = long_fold(torch, params, batches[2048],
+                               "attention-oracle", {}, "a_oracle_r2048")
+    del out
+    if not rows["a"]["modeled_peak_unchunked_bytes"] > \
+            rows["a"]["card_total_bytes"]:
+        fail("long a: the unchunked model fits the card; r = 2048 shows "
+             "nothing")
+    rows["b"], out = long_fold(torch, params, batches[2048], "default", {},
+                               "b_default_r2048")
+    del out
+    whole, out_whole = long_fold(torch, params, batches[1024],
+                                 "attention-oracle", {"auto_chunk": False},
+                                 "c_oracle_r1024_unchunked")
+    budget = int(0.3 * whole["modeled_peak_bytes"])
+    chunked, out_chunked = long_fold(torch, params, batches[1024],
+                                     "attention-oracle",
+                                     {"hbm_budget": budget},
+                                     "c_oracle_r1024_autochunk")
+    diffs = _agree("c", out_chunked, out_whole)
+    del out_whole, out_chunked
+    ratio = chunked["measured_peak_bytes"] / whole["measured_peak_bytes"]
+    emit({"phase": "long_compare", "case": "c_oracle_r1024",
+          "hbm_budget": budget,
+          "unchunked_measured_peak_bytes": whole["measured_peak_bytes"],
+          "autochunk_measured_peak_bytes": chunked["measured_peak_bytes"],
+          "peak_ratio": ratio, "memory_saved": 1 - ratio,
+          "paper_claim": "over 80% saved",
+          "unchunked_seconds": whole["seconds"],
+          "autochunk_seconds": chunked["seconds"],
+          "max_rel_diff": diffs, "tol": CHUNK_TOL})
+    plain, out_plain = long_fold(torch, params, batches[1024], "default",
+                                 {"auto_chunk": False},
+                                 "d_default_r1024_no_knobs")
+    small, out_small = long_fold(torch, params, batches[1024], "default",
+                                 SMALLEST_KNOBS,
+                                 "d_default_r1024_smallest_knobs")
+    diffs = _agree("d", out_small, out_plain)
+    del out_plain, out_small
+    emit({"phase": "long_compare", "case": "d_default_r1024",
+          "no_knobs_measured_peak_bytes": plain["measured_peak_bytes"],
+          "smallest_knobs_measured_peak_bytes": small["measured_peak_bytes"],
+          "no_knobs_seconds": plain["seconds"],
+          "smallest_knobs_seconds": small["seconds"],
+          "max_rel_diff": diffs, "tol": CHUNK_TOL})
+    del params
+    torch.cuda.empty_cache()
+    return rows["a"]["knobs"]["inference_chunk"]
+
+
+def long_kernel_phase(torch, timer, chunk: int):
+    """K4, K5, K7 and K8 at the r = 2048 main path's shapes and layouts
+    (bf16; K4 on one chunk of ``chunk`` triangle groups of fold (a)), each
+    whole on the card and held against its plain version on a slice of
+    rows the plain version can hold: ms of the whole call beside its bound,
+    the plain version's and the library call's ms on the slice."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_softmax import fused_softmax_cuda
+    from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
+
+    r, h, d, s, bf = 2048, 4, 32, LONG_SHAPE["n_seq"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def randn(shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def key_mask(n, c):
+        keep = torch.rand((n, c), generator=gen, device="cuda") < 0.9
+        keep[:, c - 100:] = False                    # padded residues
+        return torch.where(keep, 0.0, -1e9).float()
+
+    rows = []
+
+    def record(kernel, case, shape, err, rel, ms, bound_args, plain_ms,
+               library_ms, library_call, rows_held):
+        t_b, by = bound(*bound_args)
+        row = {"phase": "long_kernel", "kernel": kernel, "case": case,
+               "dtype": "bfloat16", "shape": list(shape), "max_abs_err": err,
+               "max_rel_err": rel, "tol": TOL[kernel]["bfloat16"],
+               "rows_held_against_plain": rows_held, "ms": ms,
+               "bound_ms": t_b, "bound_by": by, "plain_ms_on_slice": plain_ms,
+               "library_ms_on_slice": library_ms,
+               "library_call": library_call}
+        emit(row)
+        rows.append(row)
+        if rel > TOL[kernel]["bfloat16"]:
+            fail(f"{kernel} {case}: error {rel:.3g} > "
+                 f"{TOL[kernel]['bfloat16']}")
+
+    # K5 at the triangle sites: q, k, v column slices of the merged
+    # projection, (N = r groups, S = r, H, D); bias (1, H, r, r).
+    n, held = r, 8
+    qkv = randn((n, r, 3 * h * d))
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+               for i in range(3))
+    bias, mask, scale = randn((1, h, r, r)), key_mask(n, r), d ** -0.5
+    out, _ = flash_attention_cuda(q, k, v, bias, mask, scale)
+    sl = (q[:held], k[:held], v[:held], bias, mask[:held], scale)
+    want, _ = ref.attention_ref(*sl)
+    err, rel = rel_err(out[:held], want)
+    qb, kb, vb = (t.transpose(1, 2).contiguous() for t in sl[:3])
+    am = (bias + mask[:held].to(bf).view(held, 1, 1, r))
+    record("flash_attention_fwd", "r2048 triangle site", (n, r, r, h, d),
+           err, rel, timer(lambda: flash_attention_cuda(q, k, v, bias, mask,
+                                                        scale)),
+           (nbytes(q, k, v, bias, mask, out) + 4 * n * h * r,
+            4.0 * n * h * r * r * d, "bfloat16"),
+           timer(lambda: ref.attention_ref(*sl)),
+           timer(lambda: F.scaled_dot_product_attention(
+               qb, kb, vb, attn_mask=am, scale=scale)),
+           "SDPA, bias and mask summed beforehand", held)
+    del qkv, q, k, v, out, want, qb, kb, vb, am
+
+    # K4 on one chunk of the triangle sites under attention-oracle:
+    # (N = chunk groups, H, r, r) scores, bias (1, H, r, r).
+    n, held = chunk, 4
+    x, mask = randn((n, h, r, r), 4.0), key_mask(n, r)
+    got = fused_softmax_cuda(x, bias, mask, scale)
+    want = ref.softmax_ref(x[:held], bias, mask[:held], scale)
+    tol = TOL["fused_softmax"]["bfloat16"]
+    rel = elem_rel_err(got[:held], want, tol)
+    pre = (x[:held].float() * scale + bias.float()
+           + mask[:held].view(held, 1, 1, r))
+    record("fused_softmax", f"r2048 triangle chunk of {n}", (n, h, r, r),
+           rel_err(got[:held], want)[0], rel,
+           timer(lambda: fused_softmax_cuda(x, bias, mask, scale)),
+           (nbytes(x, bias, mask, got), 8.0 * x.numel(), "float32"),
+           timer(lambda: ref.softmax_ref(x[:held], bias, mask[:held], scale)),
+           timer(lambda: torch.softmax(pre, -1)),
+           "torch.softmax(fp32 logits, -1), the logits summed beforehand",
+           held)
+    del x, got, want, pre, bias
+
+    # K7, outgoing: a_lin, ga the column halves of the merged projections.
+    c, held = 128, 16
+    ab, gg = randn((1, r, r, 2 * c)), randn((1, r, r, 2 * c), 2.0)
+    a_lin, ga = ab[..., :c], gg[..., :c]
+    tmask = (torch.rand((1, r, r), generator=gen, device="cuda")
+             < 0.9).float()
+    b_full, g_lin = randn((1, r, r, c)), randn((1, r, r, c), 2.0)
+    f32 = dict(dtype=torch.float32)
+    gamma, beta = randn((c,), 0.1, **f32) + 1, randn((c,), 0.1, **f32)
+    w_out, b_out = randn((c, c), c ** -0.5, **f32), randn((c,), 0.1, **f32)
+    g_bias = randn((c,), **f32)
+    args = (a_lin, ga, tmask, b_full, gamma, beta, w_out, b_out, g_lin,
+            g_bias)
+    out, _, _ = fused_triangle_cuda(*args)
+    sl = (a_lin[:, :held], ga[:, :held], tmask[:, :held], b_full, gamma,
+          beta, w_out, b_out, g_lin[:, :held], g_bias)
+    want = ref.triangle_mult_ref(*sl)[0]
+    err, rel = rel_err(out[:, :held], want)
+    g_l, be_l, w_t = gamma.to(bf), beta.to(bf), w_out.t().contiguous().to(bf)
+
+    def composition():
+        a = torch.sigmoid(sl[1]) * sl[0] * sl[2][..., None].to(bf)
+        o = torch.einsum("bikc,bjkc->bijc", a, b_full)
+        y = F.layer_norm(o, (c,), g_l, be_l)
+        return torch.sigmoid(sl[8] + g_bias.to(bf)) * F.linear(
+            y, w_t, b_out.to(bf))
+
+    record("triangle_mult", "r2048 outgoing", (1, r, r, r, c, c), err, rel,
+           timer(lambda: fused_triangle_cuda(*args)),
+           (nbytes(a_lin, ga, *args[2:], out) + 8 * r * r,
+            2.0 * r * r * c * (r + c), "bfloat16"),
+           timer(lambda: ref.triangle_mult_ref(*sl)), timer(composition),
+           "cuBLAS composition: einsum (permute + bmm) + F.layer_norm + "
+           "F.linear + gate", held)
+    del ab, gg, a_lin, ga, b_full, g_lin, out, args, sl, want
+
+    # K8: a, b (1, s, r, 32) masked; w (32 * 32, 128).
+    c, dz, held = 32, 128, 16
+    omask = (torch.rand((1, s, r), generator=gen, device="cuda") < 0.9).float()
+    a = randn((1, s, r, c)) * omask[..., None].to(bf)
+    b_ = randn((1, s, r, c)) * omask[..., None].to(bf)
+    w, obias = randn((c * c, dz), 1.0 / c), randn((dz,), **f32)
+    out = fused_opm_cuda(a, b_, omask, omask, w, obias)
+    sl = (a[:, :, :held].contiguous(), b_, omask[:, :, :held].contiguous(),
+          omask, w, obias)
+    want = ref.outer_product_mean_ref(*sl)
+    err, rel = rel_err(out[:, :held], want)
+    wl, bl = w.to(bf), obias.to(bf)
+
+    def opm_composition():
+        o = torch.einsum("bsic,bsjd->bijcd", sl[0], b_)
+        norm = torch.einsum("bsi,bsj->bij", sl[2], omask)
+        ov = (o / (norm[..., None, None] + 1e-3).to(bf))
+        return ov.flatten(-2) @ wl + bl
+
+    record("outer_product_mean", "r2048", (1, s, r, r, c, dz), err, rel,
+           timer(lambda: fused_opm_cuda(a, b_, omask, omask, w, obias)),
+           (nbytes(a, b_, omask, omask, w, obias, out),
+            2.0 * r * r * c * c * (s + dz), "bfloat16"),
+           timer(lambda: ref.outer_product_mean_ref(*sl)),
+           timer(opm_composition),
+           "cuBLAS composition: einsum + mask norm + matmul", held)
+    del a, b_, out, sl, want
+    torch.cuda.empty_cache()
+    emit({"long_kernels": rows})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -1699,6 +2063,8 @@ def main() -> int:
         torch, "attention-oracle", n_steps=2)
     for plan in ("default", "attention-oracle"):
         train_parity_phase(torch, tree, plan)
+    chunk = long_phase(torch, tree)
+    long_kernel_phase(torch, Timer(torch), chunk)
 
     # One line for every ported kernel, at its heaviest main-path shape;
     # its launches are those of its own path (KERNEL_PATHS), and it lists

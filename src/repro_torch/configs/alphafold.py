@@ -1,10 +1,14 @@
 """AlphaFold model configs (paper Table I) and their dataclasses.
 
 Own copies of the reference's ``EvoformerConfig`` / ``StructureConfig`` /
-``AlphaFoldConfig`` with the fields inference and training read; ``compute_dtype`` is a
-torch dtype. The chunking knobs of the reference (AutoChunk) are not part of
-this port yet: they change memory, not numbers. ``opm_chunk`` is the one
-knob the port reads: the j block of the materialized outer-product-mean.
+``AlphaFoldConfig`` with the fields inference and training read;
+``compute_dtype`` is a torch dtype and lives on ``AlphaFoldConfig`` only.
+``EvoformerConfig`` carries the reference's chunk and tile knobs and its
+``auto_chunk`` switch: knobs left at 0 are filled per forward by the
+AutoChunk planner (``repro_torch.memory.autochunk``) from the device's
+memory budget, and a knob set by hand is kept. They change memory and time,
+never the numbers. What each knob bounds on each branch of the port is
+said beside it below.
 """
 from __future__ import annotations
 
@@ -27,8 +31,33 @@ class EvoformerConfig:
     dropout_pair: float = 0.25
     n_blocks: int = 48
     # OPM j-chunking of the materialized branch: the (B, r, r, c, c) outer
-    # product is formed in j blocks of this size (0 = the whole row).
+    # product is formed in j blocks of this size (0 = the whole row; a
+    # block that does not divide r runs the whole row, as in the reference).
     opm_chunk: int = 0
+    # Paper §V.C group chunking at the four attention sites (MSA row, MSA
+    # column, triangle start and end): the G groups run in sequential
+    # chunks of this size on either branch (0 = off; a chunk that does not
+    # divide G runs whole, as in the reference).
+    inference_chunk: int = 0
+    # The fused attention op's KV tile (0 = default). The flash kernel (K5)
+    # keeps no (G, H, S, tile) block and its KV tile is fixed by its
+    # tensor-core design, so on the card it has no effect; the plain version
+    # takes this many query rows at a time, bounding its scores at
+    # (N, H, tile, Skv).
+    attn_kv_tile: int = 0
+    # The fused triangle op's tile (0 = default). K7 stages the whole gated
+    # a and b in its workspace and its k tile is fixed by its fragment
+    # layout, so on the card it has no effect; the plain version and the
+    # recompute backward take j blocks of this size (default 128).
+    tri_k_tile: int = 0
+    # The fused outer-product-mean op's tile (0 = default). K8 writes only
+    # its output and keeps its s ring on chip, so on the card it has no
+    # effect; the plain version and the recompute backward take j blocks of
+    # this size (default 128).
+    opm_s_tile: int = 0
+    # Let the AutoChunk planner fill every knob above left at 0 from the
+    # memory budget, once per forward (``core.alphafold.alphafold_forward``).
+    auto_chunk: bool = True
 
 
 @dataclass(frozen=True)

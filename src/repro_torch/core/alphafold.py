@@ -2,11 +2,19 @@
 structure module and the heads, for folding inference and for the training
 loss.
 
-Left out of this port for now: AutoChunk (the reference's
-``resolve_evoformer_config``), whose knobs change memory and not numbers.
-The current plan's ``MemoryPolicy.opm_chunk`` overrides the config's, as in
-the reference; a plan asking for anything else the port does not serve
-raises. The recycling loop is a Python loop.
+Chunking: ``alphafold_forward`` applies the current plan's
+``MemoryPolicy`` overrides to the Evoformer config, then resolves every
+chunk knob left at 0 through the AutoChunk planner (``planned_evoformer``,
+as ``memory.autochunk.resolve_evoformer_config`` resolves them), once per
+forward, as the reference does: the least-chunked settings whose modelled
+peak fits the budget, no chunking where everything fits. The budget is
+``hbm_budget=``, else the plan's ``MemoryPolicy.hbm_budget``, else the
+device's (``device.hbm_budget_bytes``: the card's memory less what is
+allocated when the forward starts); the planner gets it less what the
+forward keeps live outside the Evoformer block
+(``memory.autochunk.outside_block_bytes``). Knobs set by hand and
+``auto_chunk=False`` opt out. A plan asking for a backend other than
+``"local"`` raises. The recycling loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -15,15 +23,19 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.alphafold import AlphaFoldConfig
+from repro_torch.configs.alphafold import AlphaFoldConfig, EvoformerConfig
 from repro_torch.core.evoformer import (DROPOUT_SITES, evoformer_stack,
                                         init_evoformer_stack)
 from repro_torch.core.losses import alphafold_loss
 from repro_torch.core.structure import init_structure_module, structure_module
 from repro_torch.data.synthetic import N_AA, N_MSA_TOK
-from repro_torch.exec.plan import check_port_supports, current_plan
+from repro_torch.device import hbm_budget_bytes
+from repro_torch.exec.plan import current_plan
 from repro_torch.layers.norms import init_layer_norm, layer_norm
 from repro_torch.layers.params import Params, dense, init_dense
+from repro_torch.memory.autochunk import (ChunkPlan, apply_plan,
+                                          evoformer_chunk_plan,
+                                          outside_block_bytes)
 
 RELPOS_K = 32
 N_DIST_BINS = 64
@@ -127,9 +139,33 @@ def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig, *,
     }
 
 
+def planned_evoformer(cfg: AlphaFoldConfig, batch_shape, *, device,
+                      hbm_budget: int | None = None
+                      ) -> tuple[EvoformerConfig, ChunkPlan | None, int]:
+    """The Evoformer config a forward of ``batch_shape`` (B, s, r) on
+    ``device`` runs under the current plan, the AutoChunk plan that filled
+    it (None with ``auto_chunk`` off), and the budget the planner got: the
+    fold's budget less ``outside_block_bytes``."""
+    plan = current_plan()
+    dist = plan.parallel.make_dist()      # raises for a backend not served
+    evo = plan.memory.apply(cfg.evoformer)
+    b, s, r = batch_shape
+    budget = (hbm_budget if hbm_budget is not None
+              else plan.memory.hbm_budget or hbm_budget_bytes(device))
+    budget -= sum(outside_block_bytes(evo, batch=b, n_seq=s, n_res=r,
+                                      dtype=cfg.compute_dtype).values())
+    if not evo.auto_chunk:
+        return evo, None, budget
+    chunks = evoformer_chunk_plan(
+        evo, batch=b, n_seq=s, n_res=r, dap=dist.axis_size,
+        budget_bytes=budget, device=device, dtype=cfg.compute_dtype)
+    return apply_plan(evo, chunks), chunks, budget
+
+
 def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
                       n_recycle: int | None = None, train: bool = False,
-                      keeps: list[dict] | None = None, remat: bool = False):
+                      keeps: list[dict] | None = None, remat: bool = False,
+                      hbm_budget: int | None = None):
     """Full forward with recycling (``n_recycle`` extra passes, default the
     config's). ``batch`` is a dict of tensors on the parameters' device.
 
@@ -138,16 +174,17 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
     reference's stop_gradient over its recycling loop) and builds the graph
     in the last pass only; every pass applies the same dropout masks
     ``keeps`` (the reference hands one rng to all of them), and ``remat``
-    checkpoints each Evoformer block of the last pass."""
-    plan = current_plan()
-    check_port_supports(plan)
-    if plan.memory.opm_chunk:
-        cfg = dataclasses.replace(cfg, evoformer=dataclasses.replace(
-            cfg.evoformer, opm_chunk=plan.memory.opm_chunk))
-    if n_recycle is None:
-        n_recycle = cfg.n_recycle
+    checkpoints each Evoformer block of the last pass. Both resolve the
+    chunk knobs first (``planned_evoformer``; ``hbm_budget`` overrides the
+    plan's and the device's budget)."""
     b, s, r = batch["msa"].shape
     dev = batch["msa"].device
+    evo, _, _ = planned_evoformer(cfg, (b, s, r), device=dev,
+                                  hbm_budget=hbm_budget)
+    if evo != cfg.evoformer:
+        cfg = dataclasses.replace(cfg, evoformer=evo)
+    if n_recycle is None:
+        n_recycle = cfg.n_recycle
 
     def zeros_prev():
         return (
@@ -162,6 +199,8 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
             out = alphafold_iteration(params, batch, prev, cfg, keeps=keeps)
             prev = (out["msa"][:, 0].float(), out["pair"].float(),
                     out["coords"])
+            # Only prev crosses into the next pass (outside_block_bytes).
+            del out
         return prev
 
     if not train:

@@ -26,6 +26,13 @@ The default plan takes the fused branches where the kernels take the widths
 ``preset("triangle-oracle")`` and ``preset("oracle")`` select the
 materialized ones, and so does a width outside a kernel's envelope.
 
+Chunking (the knobs of ``EvoformerConfig``, filled per forward by AutoChunk,
+``memory/autochunk.py``): ``inference_chunk`` runs the G groups of each of
+the four attention sites in sequential chunks (paper §V.C), on either
+branch; ``attn_kv_tile``, ``tri_k_tile`` and ``opm_s_tile`` go down to the
+fused ops, and ``opm_chunk`` sets the j blocks of the materialized
+outer-product-mean. None of them changes a number.
+
 Training: the six residual adds that the reference drops out go through
 ``ops.bias_dropout_add`` with their keep masks (drawn by the caller, see
 ``core.alphafold.draw_dropout_keeps``, at the reduced shape of the
@@ -140,22 +147,43 @@ def transpose_pair(x: torch.Tensor) -> torch.Tensor:
 
 def _gated_attention(p_attn: Params, x_n: torch.Tensor,
                      bias: torch.Tensor | None, key_mask: torch.Tensor,
-                     dims: AttnDims) -> torch.Tensor:
+                     dims: AttnDims, chunk: int = 0,
+                     kv_tile: int = 0) -> torch.Tensor:
     """Group attention, 5D. x_n (B, G, S, d); bias (B, H, S, S) shared
     across G, or None; key_mask (B, G, S) in {0, 1}. The fused branch where
-    the plan and the kernel's envelope allow it, else the
-    scores-materialized branch."""
-    q, k, v = project_qkv(p_attn, x_n, dims, compute_dtype=x_n.dtype)
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    mask = torch.where(key_mask > 0, 0.0, NEG_INF).to(torch.float32)
-    if ops.fused_attention_supported(q.shape, kv_len=k.shape[2],
-                                     dtype=q.dtype, device=q.device):
-        ctx = ops.fused_attention(q, k, v, bias=bias, mask=mask, scale=scale)
-    else:
-        scores = torch.einsum("bgihd,bgjhd->bghij", q, k)
-        probs = ops.fused_softmax(scores, bias=bias, mask=mask, scale=scale)
-        ctx = torch.einsum("bghij,bgjhd->bgihd", probs, v)
-    return output_proj(p_attn, ctx, x_for_gate=x_n)
+    the plan and the kernel's envelope allow it (``kv_tile`` goes down to
+    ``ops.fused_attention``), else the scores-materialized branch.
+
+    ``chunk`` > 0: the paper's §V.C chunking, as the reference runs it: the
+    G groups in sequential chunks of ``chunk`` (projections, attention and
+    output projection of one chunk at a time), written into one output; a
+    chunk that does not divide G runs whole."""
+    def attend(x_c, mask_c):
+        q, k, v = project_qkv(p_attn, x_c, dims, compute_dtype=x_c.dtype)
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+        mask = torch.where(mask_c > 0, 0.0, NEG_INF).to(torch.float32)
+        if ops.fused_attention_supported(q.shape, kv_len=k.shape[2],
+                                         dtype=q.dtype, device=q.device):
+            ctx = ops.fused_attention(q, k, v, bias=bias, mask=mask,
+                                      scale=scale, kv_tile=kv_tile)
+        else:
+            scores = torch.einsum("bgihd,bgjhd->bghij", q, k)
+            probs = ops.fused_softmax(scores, bias=bias, mask=mask,
+                                      scale=scale)
+            del scores
+            ctx = torch.einsum("bghij,bgjhd->bgihd", probs, v)
+        return output_proj(p_attn, ctx, x_for_gate=x_c)
+
+    g = x_n.shape[1]
+    if not chunk or g % chunk != 0 or chunk >= g:
+        return attend(x_n, key_mask)
+    out = None
+    for g0 in range(0, g, chunk):
+        y = attend(x_n[:, g0:g0 + chunk], key_mask[:, g0:g0 + chunk])
+        if out is None:
+            out = y.new_empty(y.shape[:1] + (g,) + y.shape[2:])
+        out[:, g0:g0 + chunk] = y
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +198,9 @@ def msa_row_attention(p, msa, pair, seq_mask, cfg: EvoformerConfig):
     bias = dense(p["bias"], z_n).permute(0, 3, 1, 2)     # (B, H, r, r)
     m_n = layer_norm(p["ln_m"], msa)
     key_mask = seq_mask[:, None, :].expand(b, s, r)
-    return _gated_attention(p["attn"], m_n, bias, key_mask, dims)
+    return _gated_attention(p["attn"], m_n, bias, key_mask, dims,
+                            chunk=cfg.inference_chunk,
+                            kv_tile=cfg.attn_kv_tile)
 
 
 def msa_col_attention(p, msa, msa_mask, cfg: EvoformerConfig):
@@ -179,7 +209,9 @@ def msa_col_attention(p, msa, msa_mask, cfg: EvoformerConfig):
     m_n = layer_norm(p["ln"], msa)
     x = m_n.transpose(1, 2)                     # (B, r, s, d)
     key_mask = msa_mask.transpose(1, 2)         # (B, r, s)
-    out = _gated_attention(p["attn"], x, None, key_mask, dims)
+    out = _gated_attention(p["attn"], x, None, key_mask, dims,
+                           chunk=cfg.inference_chunk,
+                           kv_tile=cfg.attn_kv_tile)
     return out.transpose(1, 2)
 
 
@@ -190,8 +222,9 @@ def msa_transition(p, msa):
 def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig):
     """msa (B, s, r, Hm) -> pair update (B, r, r, Hz): the masked merged
     projection, then the outer product, mask norm and c²→Hz projection,
-    fused where the plan and the kernel's envelope allow it, else
-    materialized (whole, or in j blocks of ``cfg.opm_chunk``)."""
+    fused where the plan and the kernel's envelope allow it (with the tile
+    ``cfg.opm_s_tile``), else materialized (whole, or in j blocks of
+    ``cfg.opm_chunk``)."""
     c = cfg.opm_dim
     m_n = layer_norm(p["ln"], msa)
     ab = dense(p["proj"], m_n)                   # merged GEMM (B, s, r, 2c)
@@ -201,7 +234,8 @@ def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig):
     bproj = bproj * mask
     if ops.fused_opm_supported(c, p["out"]["w"].shape[1], a.dtype, a.device):
         return ops.fused_outer_product_mean(a, bproj, msa_mask, msa_mask,
-                                            p["out"]["w"], p["out"]["b"])
+                                            p["out"]["w"], p["out"]["b"],
+                                            tile=cfg.opm_s_tile)
 
     def opm_block(b_blk, mask_blk):
         o = torch.einsum("bsic,bsjd->bijcd", a, b_blk)     # (B, r, jc, c, c)
@@ -217,11 +251,12 @@ def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig):
                       for j in range(0, r, jc)], dim=2)
 
 
-def triangle_mult_core(p, z_src, pair_mask):
+def triangle_mult_core(p, z_src, pair_mask, tile: int = 0):
     """The gated triangular multiplicative update in ``z_src`` coords
     (already LN'ed). Fused branch: the b half is gated and masked here, the
     a half's gating, the k-product, the output LN, projection and gate run
-    in one op. Materialized branch (by the plan, or a width outside the
+    in one op, with the tile ``tile`` (``cfg.tri_k_tile``). Materialized
+    branch (by the plan, or a width outside the
     kernel's envelope): the gated a and b, the (B, r, r, c) product, the
     output LN, the projection and the gate, one after another."""
     ab = dense(p["proj"], z_src)                 # (B, r, k, 2c) merged
@@ -242,18 +277,22 @@ def triangle_mult_core(p, z_src, pair_mask):
     bm = bm * pair_mask[..., None].to(ab.dtype)
     return ops.fused_triangle_mult(
         a_lin, ga, pair_mask, bm, p["ln_out"]["gamma"], p["ln_out"]["beta"],
-        p["out"]["w"], p["out"]["b"], g_lin, p["gate_out"]["b"])
+        p["out"]["w"], p["out"]["b"], g_lin, p["gate_out"]["b"], tile=tile)
 
 
-def triangle_mult_outgoing(p, pair, pair_mask):
-    return triangle_mult_core(p, layer_norm(p["ln_in"], pair), pair_mask)
+def triangle_mult_outgoing(p, pair, pair_mask,
+                           cfg: EvoformerConfig | None = None):
+    return triangle_mult_core(p, layer_norm(p["ln_in"], pair), pair_mask,
+                              tile=cfg.tri_k_tile if cfg is not None else 0)
 
 
-def triangle_mult_incoming(p, pair_t, pair_mask_t):
+def triangle_mult_incoming(p, pair_t, pair_mask_t,
+                           cfg: EvoformerConfig | None = None):
     """incoming(z)_ij = sum_k a_ki b_kj == outgoing_core(z^T)_ij: computed in
     transposed coords and swapped back."""
     z_n_t = layer_norm(p["ln_in"], pair_t)
-    return transpose_pair(triangle_mult_core(p, z_n_t, pair_mask_t))
+    return transpose_pair(triangle_mult_core(
+        p, z_n_t, pair_mask_t, tile=cfg.tri_k_tile if cfg is not None else 0))
 
 
 def triangle_attention(p, pair, seq_mask, cfg: EvoformerConfig):
@@ -264,7 +303,9 @@ def triangle_attention(p, pair, seq_mask, cfg: EvoformerConfig):
     z_n = layer_norm(p["ln"], pair)
     bias = dense(p["bias"], z_n).permute(0, 3, 1, 2)       # (B, H, r, r)
     key_mask = seq_mask[:, None, :].expand(b, r_i, r)
-    return _gated_attention(p["attn"], z_n, bias, key_mask, dims)
+    return _gated_attention(p["attn"], z_n, bias, key_mask, dims,
+                            chunk=cfg.inference_chunk,
+                            kv_tile=cfg.attn_kv_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -280,26 +321,32 @@ def evoformer_block(params: Params, msa: torch.Tensor, pair: torch.Tensor,
     block's dropout masks by site (``DROPOUT_SITES``), or None for none."""
     kp = keeps or {}
     rm, rz = cfg.dropout_msa, cfg.dropout_pair
-    upd = msa_row_attention(params["msa_row"], msa, pair, seq_mask, cfg)
-    msa = _residual_add(upd, msa, rm, kp.get("msa_row"))
-    upd = msa_col_attention(params["msa_col"], msa, msa_mask, cfg)
-    msa = _residual_add(upd, msa)
+    # Each update goes straight into its residual add, so none is still
+    # held while the next site runs.
+    msa = _residual_add(
+        msa_row_attention(params["msa_row"], msa, pair, seq_mask, cfg), msa,
+        rm, kp.get("msa_row"))
+    msa = _residual_add(
+        msa_col_attention(params["msa_col"], msa, msa_mask, cfg), msa)
     msa = _residual_add(msa_transition(params["msa_trans"], msa), msa)
 
     pair = _residual_add(outer_product_mean(params["opm"], msa, msa_mask, cfg),
                          pair, rz, kp.get("opm"))
-    upd = triangle_mult_outgoing(params["tri_mult_out"], pair, pair_mask)
-    pair = _residual_add(upd, pair, rz, kp.get("tri_mult_out"))
-    upd = triangle_mult_incoming(params["tri_mult_in"], transpose_pair(pair),
-                                 transpose_pair(pair_mask))
-    pair = _residual_add(upd, pair, rz, kp.get("tri_mult_in"))
-    upd = triangle_attention(params["tri_attn_start"], pair, seq_mask, cfg)
-    pair = _residual_add(upd, pair, rz, kp.get("tri_attn_start"))
+    pair = _residual_add(
+        triangle_mult_outgoing(params["tri_mult_out"], pair, pair_mask, cfg),
+        pair, rz, kp.get("tri_mult_out"))
+    pair = _residual_add(
+        triangle_mult_incoming(params["tri_mult_in"], transpose_pair(pair),
+                               transpose_pair(pair_mask), cfg),
+        pair, rz, kp.get("tri_mult_in"))
+    pair = _residual_add(
+        triangle_attention(params["tri_attn_start"], pair, seq_mask, cfg),
+        pair, rz, kp.get("tri_attn_start"))
     # Ending-node attention == starting-node attention on the transpose.
-    upd_t = triangle_attention(params["tri_attn_end"], transpose_pair(pair),
-                               seq_mask, cfg)
-    pair = _residual_add(transpose_pair(upd_t), pair, rz,
-                         kp.get("tri_attn_end"))
+    pair = _residual_add(
+        transpose_pair(triangle_attention(
+            params["tri_attn_end"], transpose_pair(pair), seq_mask, cfg)),
+        pair, rz, kp.get("tri_attn_end"))
     pair = _residual_add(
         transition(params["pair_trans"]["mlp"],
                    layer_norm(params["pair_trans"]["ln"], pair)), pair)

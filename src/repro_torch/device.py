@@ -1,7 +1,13 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs: the card unless the caller asks for the CPU, and the
+device memory a fold may plan against there."""
 from __future__ import annotations
 
 import torch
+
+# The budget AutoChunk plans against for a fold on the CPU, where no device
+# memory bounds it: a stated constant, not a measurement of any device. The
+# tests pass their own budgets.
+CPU_HBM_BYTES = 8 << 30
 
 
 def resolve_device(device=None) -> torch.device:
@@ -15,3 +21,17 @@ def resolve_device(device=None) -> torch.device:
                 "versions of the kernels on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def hbm_budget_bytes(device=None) -> int:
+    """Device memory a forward starting now may allocate: on a CUDA device
+    the card's own total (``total_memory``: about 79 GiB on an H100 80GB)
+    less what the caching allocator already holds in live tensors (the
+    parameters and inputs, which the AutoChunk model does not count); on
+    the CPU (or ``None``) ``CPU_HBM_BYTES``."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type != "cuda":
+        return CPU_HBM_BYTES
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return (torch.cuda.get_device_properties(idx).total_memory
+            - torch.cuda.memory_allocated(idx))

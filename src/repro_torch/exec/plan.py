@@ -11,13 +11,14 @@ The four policies, their fields, legs, validation, presets and JSON form are
 the reference's, so a plan serialises to the same string in both packages.
 How the ``KernelPolicy`` legs resolve on the card and on the CPU is the leg
 table in ``kernels/ops.py``. ``ParallelPolicy``, ``MemoryPolicy`` and
-``AsyncPolicy`` are carried as data: ``exec.session.FastFold`` raises on a
-request the port does not serve yet (a backend other than ``"local"``, an
-HBM budget or a chunk knob other than ``opm_chunk``, ``auto_chunk=True``)
-and names the ``ROADMAP.md`` item that will; the async window is the
-identity on one device, so ``AsyncPolicy`` is accepted as it is. The
-reference's ``ParallelPolicy.make_dist`` builds a JAX collective backend and
-has no counterpart here.
+``AsyncPolicy`` are the reference's too: ``MemoryPolicy.apply`` writes its
+budget-free knobs into the EvoformerConfig and ``core.alphafold`` plans the
+rest against its ``hbm_budget`` (AutoChunk, ``memory/autochunk.py``);
+``ParallelPolicy.make_dist`` builds the one-device backend
+(``core/dist.py``), and ``exec.session.FastFold`` raises on any other
+backend, naming the ``ROADMAP.md`` item that will serve it; the async
+window is the identity on one device, so ``AsyncPolicy`` is accepted as it
+is.
 
 Scoping: ``current_plan()`` is the innermost ``use_plan`` scope's plan,
 else the plan the environment asks for (``envcompat.plan_from_env``). The
@@ -80,14 +81,21 @@ class ParallelPolicy:
             raise ValueError(f"ParallelPolicy.backend={self.backend!r}: "
                              f"not in {_DIST_BACKENDS}")
 
+    def make_dist(self):
+        """The backend this policy names (``core.dist.dist_from_policy``):
+        ``LocalDist`` for ``"local"``; the others raise."""
+        from repro_torch.core.dist import dist_from_policy
+
+        return dist_from_policy(self)
+
 
 @dataclass(frozen=True)
 class MemoryPolicy:
-    """HBM budget and chunk knob overrides. A nonzero knob overrides the
-    EvoformerConfig's value; ``auto_chunk`` overrides the config's planner
-    opt-in when not None. Of these the port reads ``opm_chunk``; the
-    reference's ``apply`` (which writes every knob into the config) has no
-    copy here, as the port's config has no field for the others."""
+    """Device-memory budget and chunk knob overrides. ``hbm_budget=None``
+    means the device's own (``device.hbm_budget_bytes``). A nonzero knob
+    overrides the EvoformerConfig's value (and is then pinned by the
+    AutoChunk planner); ``auto_chunk`` overrides the config's planner
+    opt-in when not None."""
 
     hbm_budget: int | None = None
     auto_chunk: bool | None = None
@@ -99,6 +107,17 @@ class MemoryPolicy:
 
     _KNOBS = ("inference_chunk", "opm_chunk", "attn_kv_tile", "tri_k_tile",
               "opm_s_tile")
+
+    def apply(self, evo_cfg):
+        """EvoformerConfig with this policy's overrides applied (the input
+        itself when nothing overrides)."""
+        updates = {k: getattr(self, k) for k in self._KNOBS
+                   if getattr(self, k)}
+        if self.auto_chunk is not None:
+            updates["auto_chunk"] = self.auto_chunk
+        if not updates:
+            return evo_cfg
+        return dataclasses.replace(evo_cfg, **updates)
 
 
 @dataclass(frozen=True)
@@ -201,24 +220,6 @@ class ExecutionPlan:
                 f"parallel({self.parallel.backend}) "
                 f"memory(budget={self.memory.hbm_budget}) "
                 f"async(overlap={self.duality.overlap_windows})")
-
-
-def check_port_supports(plan: ExecutionPlan) -> None:
-    """Raise on a request of ``plan`` that the port does not serve yet,
-    naming the ``ROADMAP.md`` item that will, rather than ignore it."""
-    if plan.parallel.backend != "local":
-        raise NotImplementedError(
-            f"ParallelPolicy.backend={plan.parallel.backend!r}: the port runs "
-            "on one device ('local'); DAP is ROADMAP.md Queue 1 item 3")
-    mem = plan.memory
-    knobs = [k for k in MemoryPolicy._KNOBS
-             if k != "opm_chunk" and getattr(mem, k)]
-    if knobs or mem.hbm_budget is not None or mem.auto_chunk:
-        asked = knobs + (["hbm_budget"] if mem.hbm_budget is not None else []) \
-            + (["auto_chunk"] if mem.auto_chunk else [])
-        raise NotImplementedError(
-            f"MemoryPolicy {asked}: the port reads opm_chunk only; AutoChunk "
-            "and the other chunk knobs are ROADMAP.md Queue 1 item 4")
 
 
 PRESETS: dict[str, ExecutionPlan] = {

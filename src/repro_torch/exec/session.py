@@ -3,12 +3,13 @@ device, a compute dtype and an ``ExecutionPlan`` once.
 
     from repro_torch.configs import FULL
     from repro_torch.exec import (ExecutionPlan, FastFold, KernelPolicy,
-                                  preset)
+                                  MemoryPolicy, preset)
     from repro_torch.train import make_train_step
 
     ff = FastFold(FULL)                         # on the card, current plan
     params = ff.init(seed=0)
     out = ff.forward(params, batch)             # batch: dict of arrays
+    out = ff.forward(params, batch, rng=gen, train=True)   # with dropout
     outs = ff.serve(params, [batch_a, batch_b], plans=[None, preset("oracle")])
     loss, metrics = ff.train_loss(params, batch, generator=gen)
     init_state, step = make_train_step(ff.loss_fn)
@@ -16,15 +17,18 @@ device, a compute dtype and an ``ExecutionPlan`` once.
 
     oracle_attn = FastFold(FULL, plan=ExecutionPlan(
         kernels=KernelPolicy(attention="oracle")))   # scores materialized
+    long_fold = FastFold(FULL, plan=ExecutionPlan(memory=MemoryPolicy(
+        hbm_budget=40 << 30)))        # AutoChunk plans against 40 GiB
 
 ``device=None`` means the card and raises where there is none;
 ``device="cpu"`` runs every kernel's plain PyTorch version. ``plan=None``
 binds the plan current when the facade is built (the innermost
 ``use_plan`` scope, else the environment's ``REPRO_PLAN``). Every entry
 point runs under its plan (``use_plan``), a per-call ``plan=`` overriding
-the bound one; a plan asking for what the port does not serve yet raises
-(``exec.plan.check_port_supports``, at construction and in every
-forward).
+the bound one; a plan asking for a backend the port does not serve yet
+raises (``ParallelPolicy.make_dist``, at construction and in every
+forward). Every forward resolves its chunk knobs from the plan's
+``MemoryPolicy`` (``core.alphafold.planned_evoformer``).
 """
 from __future__ import annotations
 
@@ -35,10 +39,10 @@ import torch
 
 from repro_torch.configs.alphafold import AlphaFoldConfig
 from repro_torch.core.alphafold import (alphafold_forward,
-                                        alphafold_train_loss, init_alphafold)
+                                        alphafold_train_loss,
+                                        draw_dropout_keeps, init_alphafold)
 from repro_torch.device import resolve_device
-from repro_torch.exec.plan import (ExecutionPlan, check_port_supports,
-                                   current_plan, use_plan)
+from repro_torch.exec.plan import ExecutionPlan, current_plan, use_plan
 from repro_torch.layers.params import tree_map
 
 # The features the forward reads, and those the training loss adds.
@@ -58,7 +62,7 @@ class FastFold:
         self.config = config
         self.device = resolve_device(device)
         self.plan = plan if plan is not None else current_plan()
-        check_port_supports(self.plan)
+        self.plan.parallel.make_dist()      # raises for a backend not served
 
     def init(self, seed: int = 0):
         """Fresh parameters from a seeded CPU generator, on the device."""
@@ -73,13 +77,24 @@ class FastFold:
                 for k in FEATURES + TRAIN_FEATURES
                 if k in FEATURES or k in batch}
 
-    def forward(self, params, batch: Mapping, *, n_recycle: int | None = None,
+    def forward(self, params, batch: Mapping, *, rng=None, train: bool = False,
+                n_recycle: int | None = None,
                 plan: ExecutionPlan | None = None):
         """Full folding forward (recycling included) under the bound plan or
-        ``plan``."""
-        with use_plan(self.plan if plan is None else plan):
-            return alphafold_forward(params, self.batch_to_device(batch),
-                                     self.config, n_recycle=n_recycle)
+        ``plan``. ``train=True`` builds the graph of the last pass and
+        applies dropout with masks drawn from ``rng`` (a
+        ``torch.Generator``; None: no dropout, the same numbers as
+        ``train=False``); with ``train=False`` ``rng`` is not used."""
+        plan = self.plan if plan is None else plan
+        batch = self.batch_to_device(batch)
+        keeps = None
+        if train and rng is not None:
+            keeps = draw_dropout_keeps(self.config, batch["msa"].shape, rng,
+                                       self.device)
+        with use_plan(plan):
+            return alphafold_forward(params, batch, self.config,
+                                     n_recycle=n_recycle, train=train,
+                                     keeps=keeps)
 
     def serve(self, params, batches: Iterable[Mapping], *, plans=None):
         """Folding-inference service entry: one forward per request.

@@ -170,7 +170,8 @@ def _common(fn: str, q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor | None, mask: torch.Tensor | None,
-                         scale: float, groups: int | None = None
+                         scale: float, groups: int | None = None,
+                         kv_tile: int = 0
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: (N, Sq, H, D); k, v: (N, Skv, H, D), fp32 or bf16, all one dtype.
     bias: (B, H, Sq, Skv) contiguous in q's dtype with N % B == 0, or None.
@@ -178,6 +179,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 kernel (default ``fwd_groups``). In bf16 a q/k/v view whose data
     pointer or N or S stride is not a multiple of 16 bytes is copied first
     (``copy_for_kernel``).
+    ``kv_tile`` (AutoChunk's ``attn_kv_tile``) is accepted and ignored: the
+    kernel's KV tile is ``TILE`` keys, fixed by its tensor-core fragments
+    and shared-memory stages, and it allocates only out and lse, so no
+    device buffer scales with a KV tile.
     Returns (out (N, Sq, H, D) in q's dtype, lse (N, H, Sq) fp32)."""
     fn = "flash_attention_cuda"
     n, sq, skv, h, d, rep, dev = _common(fn, q, k, bias, mask)

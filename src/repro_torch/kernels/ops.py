@@ -60,8 +60,9 @@ from repro_torch.kernels.fused_elementwise import (bias_dropout_add_cuda,
 from repro_torch.kernels.fused_softmax import MAX_C as _MAX_SOFTMAX_C
 from repro_torch.kernels.fused_softmax import fused_softmax_cuda
 from repro_torch.kernels.layer_norm import layer_norm_cuda
-from repro_torch.kernels.triangle import (fused_opm_cuda, fused_triangle_cuda,
-                                          opm_bwd, triangle_mult_bwd)
+from repro_torch.kernels.triangle import (BWD_J_BLOCK, fused_opm_cuda,
+                                          fused_triangle_cuda, opm_bwd,
+                                          triangle_mult_bwd)
 
 # The reference's envelopes (src/repro/kernels/ops.py): attention head dim
 # and KV length, the triangle's channels, the OPM's channel.
@@ -312,21 +313,21 @@ def fused_attention_supported(q_shape, kv_len: int | None = None,
     return True
 
 
-def _attn_fwd(q, k, v, bias, mask, scale, kernel):
+def _attn_fwd(q, k, v, bias, mask, scale, kernel, kv_tile=0):
     """(out, lse) of the 4D form."""
     if not kernel:
-        return ref.attention_ref(q, k, v, bias, mask, scale)
+        return ref.attention_ref(q, k, v, bias, mask, scale, kv_tile=kv_tile)
     if bias is not None:
         bias = bias.contiguous()
     if mask is not None:
         mask = mask.contiguous()
-    return flash_attention_cuda(q, k, v, bias, mask, scale)
+    return flash_attention_cuda(q, k, v, bias, mask, scale, kv_tile=kv_tile)
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, scale, kernel, bwd_kernel):
-        out, lse = _attn_fwd(q, k, v, bias, mask, scale, kernel)
+    def forward(ctx, q, k, v, bias, mask, scale, kernel, bwd_kernel, kv_tile):
+        out, lse = _attn_fwd(q, k, v, bias, mask, scale, kernel, kv_tile)
         ctx.scale, ctx.bwd_kernel = scale, bwd_kernel
         # Flash recompute residuals, as the reference saves them: never the
         # (N, H, Sq, Skv) probs.
@@ -349,22 +350,23 @@ class _Attention(torch.autograd.Function):
         if db is not None:
             db = db.to(bias.dtype)
         dm = dm.to(mask.dtype) if need_dmask else None
-        return dq, dk, dv, db, dm, None, None, None
+        return dq, dk, dv, db, dm, None, None, None, None
 
 
-def _attention(q, k, v, bias, mask, scale):
+def _attention(q, k, v, bias, mask, scale, kv_tile):
     kernel = _runs_kernel("attention", q)
     if _builds_graph(q, k, v, bias, mask):
         bwd_kernel = kernel and current_plan().kernels.attn_bwd != "scan"
         return _Attention.apply(q, k, v, bias, mask, scale, kernel,
-                                bwd_kernel)
-    return _attn_fwd(q, k, v, bias, mask, scale, kernel)[0]
+                                bwd_kernel, kv_tile)
+    return _attn_fwd(q, k, v, bias, mask, scale, kernel, kv_tile)[0]
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bias: torch.Tensor | None = None,
                     mask: torch.Tensor | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    kv_tile: int = 0) -> torch.Tensor:
     """softmax(scale*qk^T + bias + mask) @ v, the scores never in memory.
 
     4D form: q (N, Sq, H, D); k, v (N, Skv, H, D); bias (B, H, Sq, Skv) with
@@ -373,6 +375,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         (B, H, S, S) shared across G and mask (B, G, S) additive; the (B, G)
         dims are flattened into N.
     ``scale`` defaults to 1/sqrt(D). Mask values must be finite (~-1e9).
+    ``kv_tile`` (0 = default; AutoChunk's ``attn_kv_tile``) goes to the
+    kernel's wrapper, which has no use for it (``flash_attention_cuda``),
+    and to the plain version, which takes that many query rows at a time.
     """
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
@@ -387,10 +392,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kf = k.reshape(b * grp, skv, h, d)
         vf = v.reshape(b * grp, skv, h, d)
         mf = mask.reshape(b * grp, skv) if mask is not None else None
-        return _attention(qf, kf, vf, bias, mf, scale).reshape(q.shape)
+        return _attention(qf, kf, vf, bias, mf, scale,
+                          kv_tile).reshape(q.shape)
     if bias is not None and bias.ndim == 3:
         bias = bias[None]
-    return _attention(q, k, v, bias, mask, scale)
+    return _attention(q, k, v, bias, mask, scale, kv_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -431,26 +437,28 @@ def fused_opm_supported(c: int, d: int, dtype=None, device=None) -> bool:
 
 
 def _tri_fwd(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
-             g_bias, eps, kernel):
+             g_bias, eps, kernel, tile=0):
     """(out, mean, inv)."""
     if not kernel:
         return ref.triangle_mult_ref(a_lin, ga, mask, b_full, gamma, beta,
-                                     w_out, b_out, g_lin, g_bias, eps)
+                                     w_out, b_out, g_lin, g_bias, eps,
+                                     tile=tile)
     # a_lin and ga go in as they lie (the column halves of the merged
     # projections); the kernel reads the mask through its strides.
     f32 = lambda t: t.float().contiguous()
     return fused_triangle_cuda(
         a_lin, ga, mask.float(), b_full.contiguous(), f32(gamma), f32(beta),
-        f32(w_out), f32(b_out), g_lin.contiguous(), f32(g_bias), eps)
+        f32(w_out), f32(b_out), g_lin.contiguous(), f32(g_bias), eps,
+        tile=tile)
 
 
 class _TriangleMult(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
-                g_bias, eps, kernel):
+                g_bias, eps, kernel, tile):
         out, mean, inv = _tri_fwd(a_lin, ga, mask, b_full, gamma, beta, w_out,
-                                  b_out, g_lin, g_bias, eps, kernel)
-        ctx.eps = eps
+                                  b_out, g_lin, g_bias, eps, kernel, tile)
+        ctx.eps, ctx.j_block = eps, tile or BWD_J_BLOCK
         # Recompute residuals: the inputs, K7's LN statistics and the output,
         # never the (B, I, J, C) product.
         ctx.save_for_backward(a_lin, ga, mask, b_full, gamma, beta, w_out,
@@ -460,8 +468,9 @@ class _TriangleMult(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         grads = triangle_mult_bwd(ctx.eps, ctx.saved_tensors, dout,
+                                  j_block=ctx.j_block,
                                   need_dmask=ctx.needs_input_grad[2])
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
@@ -469,7 +478,7 @@ def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
                         gamma: torch.Tensor, beta: torch.Tensor,
                         w_out: torch.Tensor, b_out: torch.Tensor,
                         g_lin: torch.Tensor, g_bias: torch.Tensor, *,
-                        eps: float = 1e-5) -> torch.Tensor:
+                        eps: float = 1e-5, tile: int = 0) -> torch.Tensor:
     """sigmoid(g_lin + g_bias) * (LN_C(sum_k (a_lin·σ(ga)·mask) ⊙ b_full)
     @ w_out + b_out), the (B, I, J, C) product never in memory.
 
@@ -483,53 +492,62 @@ def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
     per call), then the main kernel's k loop reads it from L2 into
     registers for mma.sync; the L2 re-reads and the epilogue bound it. One
     launch count per call.
+
+    ``tile`` (0 = default; AutoChunk's ``tri_k_tile``): the j block of the
+    plain version and of the recompute backward (default 128), as on the
+    reference's XLA leg; K7 has no use for it (``fused_triangle_cuda``).
     """
     args = (a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin, g_bias)
     kernel = _runs_kernel("triangle", a_lin)
     if _builds_graph(*args):
-        return _TriangleMult.apply(*args, eps, kernel)
-    return _tri_fwd(*args, eps, kernel)[0]
+        return _TriangleMult.apply(*args, eps, kernel, tile)
+    return _tri_fwd(*args, eps, kernel, tile)[0]
 
 
-def _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel):
+def _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel, tile=0):
     if not kernel:
-        return ref.outer_product_mean_ref(a, b_full, mask_a, mask_b, w, bias)
+        return ref.outer_product_mean_ref(a, b_full, mask_a, mask_b, w, bias,
+                                          tile=tile)
     return fused_opm_cuda(a.contiguous(), b_full.contiguous(),
                           mask_a.float().contiguous(),
                           mask_b.float().contiguous(),
                           w.to(a.dtype).contiguous(),
-                          bias.float().contiguous())
+                          bias.float().contiguous(), tile=tile)
 
 
 class _OuterProductMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b_full, mask_a, mask_b, w, bias, kernel):
-        out = _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel)
+    def forward(ctx, a, b_full, mask_a, mask_b, w, bias, kernel, tile):
+        out = _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel, tile)
+        ctx.j_block = tile or BWD_J_BLOCK
         ctx.save_for_backward(a, b_full, mask_a, mask_b, w, bias, out)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         need = ctx.needs_input_grad
-        return (*opm_bwd(ctx.saved_tensors, dout,
-                         need_dmask=need[2] or need[3]), None)
+        return (*opm_bwd(ctx.saved_tensors, dout, j_block=ctx.j_block,
+                         need_dmask=need[2] or need[3]), None, None)
 
 
 def fused_outer_product_mean(a: torch.Tensor, b_full: torch.Tensor,
                              mask_a: torch.Tensor, mask_b: torch.Tensor,
-                             w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+                             w: torch.Tensor, bias: torch.Tensor, *,
+                             tile: int = 0) -> torch.Tensor:
     """(vec(sum_s a_si ⊗ b_sj) / (sum_s mask_a·mask_b + 1e-3)) @ w + bias,
     the (B, I, J, C, C) outer product never in memory.
 
     a: (B, S, I, C), b_full: (B, S, J, C) masked; mask_a: (B, S, I),
     mask_b: (B, S, J); w: (C*C, D), bias: (D,). Returns (B, I, J, D) in a's
-    dtype.
+    dtype. ``tile`` (0 = default; AutoChunk's ``opm_s_tile``): the j block
+    of the plain version and of the recompute backward (default 128), as on
+    the reference's XLA leg; K8 has no use for it (``fused_opm_cuda``).
     """
     args = (a, b_full, mask_a, mask_b, w, bias)
     kernel = _runs_kernel("opm", a)
     if _builds_graph(*args):
-        return _OuterProductMean.apply(*args, kernel)
-    return _opm_fwd(*args, kernel)
+        return _OuterProductMean.apply(*args, kernel, tile)
+    return _opm_fwd(*args, kernel, tile)
 
 
 # ---------------------------------------------------------------------------

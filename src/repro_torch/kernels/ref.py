@@ -61,17 +61,32 @@ def bias_sigmoid_mul_ref(g: torch.Tensor, bg: torch.Tensor,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor | None = None,
                   mask: torch.Tensor | None = None,
-                  scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+                  scale: float = 1.0,
+                  kv_tile: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Scores-materialized attention.
 
     q: (N, Sq, H, D); k, v: (N, Skv, H, D)
     bias: (B, H, Sq, Skv), N % B == 0 (each bias batch element shared by N/B
           consecutive rows), or (H, Sq, Skv) as B=1.
     mask: (N, Skv) additive fp32, broadcast over H and Sq.
+    kv_tile: 0, or the query rows taken at a time, which bounds the fp32
+          scores at (N, H, kv_tile, Skv) (the reference's XLA leg bounds
+          them at (N, H, Sq, kv_tile) with an online softmax over key
+          tiles; query blocks leave every number as it is).
 
     Returns (out (N, Sq, H, D) in q.dtype, lse (N, H, Sq) fp32). The probs
     are cast to v's dtype before the PV product, which accumulates in fp32.
     """
+    sq = q.shape[1]
+    if kv_tile and 0 < kv_tile < sq:
+        if bias is not None and bias.ndim == 3:
+            bias = bias[None]
+        blocks = [attention_ref(
+            q[:, i:i + kv_tile], k, v,
+            None if bias is None else bias[:, :, i:i + kv_tile], mask, scale)
+            for i in range(0, sq, kv_tile)]
+        return (torch.cat([o for o, _ in blocks], dim=1),
+                torch.cat([l for _, l in blocks], dim=2))
     n = q.shape[0]
     s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * scale
     if bias is not None:
@@ -157,12 +172,14 @@ def triangle_mult_ref(a_lin: torch.Tensor, ga: torch.Tensor,
                       gamma: torch.Tensor, beta: torch.Tensor,
                       w_out: torch.Tensor, b_out: torch.Tensor,
                       g_lin: torch.Tensor, g_bias: torch.Tensor,
-                      eps: float = 1e-5):
+                      eps: float = 1e-5, tile: int = 0):
     """The fused triangular multiplicative update, materialized.
 
     a_lin, ga: (B, I, K, C); mask: (B, I, K); b_full: (B, J, K, C) gated
     and masked; gamma, beta: (C,); w_out: (C, D); b_out, g_bias: (D,);
-    g_lin: (B, I, J, D) output-gate logits before their bias.
+    g_lin: (B, I, J, D) output-gate logits before their bias. ``tile``: 0,
+    or the j block of the output computed at a time, which bounds the fp32
+    product at (B, I, tile, C), as the reference's XLA leg does.
 
     out = sigmoid(g_lin + g_bias) * (LN_C(sum_k a ⊙ b) @ w_out + b_out) with
     a = (a_lin * sigmoid(ga)).to(dt) * mask: fp32 product and two-pass LN
@@ -172,31 +189,50 @@ def triangle_mult_ref(a_lin: torch.Tensor, ga: torch.Tensor,
     """
     dt = a_lin.dtype
     a = ((a_lin.float() * torch.sigmoid(ga.float())).to(dt)
-         * mask.to(dt)[..., None])
-    o = torch.einsum("bikc,bjkc->bijc", a.float(), b_full.float())
-    mean = o.mean(dim=-1, keepdim=True)
-    var = (o - mean).square().mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    y = ((o - mean) * inv * gamma.float() + beta.float()).to(dt)
-    z = y.float() @ w_out.to(dt).float() + b_out.float()
-    s = torch.sigmoid(g_lin.float() + g_bias.float())
-    return (s * z).to(g_lin.dtype), mean[..., 0], inv[..., 0]
+         * mask.to(dt)[..., None]).float()
+
+    def block(b_blk, gl_blk):
+        o = torch.einsum("bikc,bjkc->bijc", a, b_blk.float())
+        mean = o.mean(dim=-1, keepdim=True)
+        var = (o - mean).square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps)
+        y = ((o - mean) * inv * gamma.float() + beta.float()).to(dt)
+        z = y.float() @ w_out.to(dt).float() + b_out.float()
+        s = torch.sigmoid(gl_blk.float() + g_bias.float())
+        return (s * z).to(g_lin.dtype), mean[..., 0], inv[..., 0]
+
+    nj = b_full.shape[1]
+    jb = tile if tile and 0 < tile < nj else nj
+    parts = [block(b_full[:, j:j + jb], g_lin[:, :, j:j + jb])
+             for j in range(0, nj, jb)]
+    return tuple(torch.cat(t, dim=2) for t in zip(*parts))
 
 
 def outer_product_mean_ref(a: torch.Tensor, b_full: torch.Tensor,
                            mask_a: torch.Tensor, mask_b: torch.Tensor,
-                           w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+                           w: torch.Tensor, bias: torch.Tensor,
+                           tile: int = 0) -> torch.Tensor:
     """The fused outer-product-mean, materialized.
 
     a: (B, S, I, C), b_full: (B, S, J, C) masked; mask_a: (B, S, I),
-    mask_b: (B, S, J); w: (C*C, D), bias: (D,).
+    mask_b: (B, S, J); w: (C*C, D), bias: (D,). ``tile``: 0, or the j block
+    of the output computed at a time, which bounds the fp32 outer product
+    at (B, I, tile, C, C), as the reference's XLA leg does.
 
     out[b,i,j] = (vec(sum_s a_si ⊗ b_sj) / (norm_ij + 1e-3)) @ w + bias with
     norm = sum_s mask_a·mask_b: fp32 outer product and norm, ov cast to a's
     dtype before the C²→D product (fp32 accumulation), output in a's dtype.
     """
-    o = torch.einsum("bsic,bsjd->bijcd", a.float(), b_full.float())
-    norm = torch.einsum("bsi,bsj->bij", mask_a.float(), mask_b.float())
-    ov = (o / (norm[..., None, None] + 1e-3)).to(a.dtype)
-    out = ov.reshape(ov.shape[:3] + (-1,)).float() @ w.to(a.dtype).float()
-    return (out + bias.float()).to(a.dtype)
+    af, maf, wf = a.float(), mask_a.float(), w.to(a.dtype).float()
+
+    def block(b_blk, mb_blk):
+        o = torch.einsum("bsic,bsjd->bijcd", af, b_blk.float())
+        norm = torch.einsum("bsi,bsj->bij", maf, mb_blk.float())
+        ov = (o / (norm[..., None, None] + 1e-3)).to(a.dtype)
+        out = ov.reshape(ov.shape[:3] + (-1,)).float() @ wf
+        return (out + bias.float()).to(a.dtype)
+
+    nj = b_full.shape[2]
+    jb = tile if tile and 0 < tile < nj else nj
+    return torch.cat([block(b_full[:, :, j:j + jb], mask_b[:, :, j:j + jb])
+                      for j in range(0, nj, jb)], dim=2)

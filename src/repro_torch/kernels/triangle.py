@@ -6,7 +6,8 @@ backwards.
 The kernels replace ``fused_triangle_pallas`` and ``fused_opm_pallas``
 (src/repro/kernels/triangle.py). The wrappers take CUDA tensors only;
 ``ops.fused_triangle_mult`` and ``ops.fused_outer_product_mean`` route CPU
-tensors to the plain versions. The kernels choose their own tiles.
+tensors to the plain versions. The kernels choose their own tiles: the
+wrappers accept AutoChunk's tile and ignore it (see each one).
 
 K7 in bf16 is two CUDA kernels behind one launch count: a pre-pass gates
 a once and writes it, with a copy of b, into a bf16 workspace in the order
@@ -78,7 +79,7 @@ def triangle_workspace(bsz: int, ni: int, nj: int, nk: int, c: int,
 
 
 def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
-                        g_lin, g_bias, eps: float = 1e-5):
+                        g_lin, g_bias, eps: float = 1e-5, tile: int = 0):
     """sigmoid(g_lin + g_bias) * (LN_C(sum_k (a_lin·σ(ga)·mask)[i,k] ⊙ b[j,k])
     @ w_out + b_out), one op: in bf16 the pre-pass (a gated once into the
     fragment-ordered workspace, b copied beside it) and the main kernel
@@ -91,8 +92,11 @@ def fused_triangle_cuda(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out,
     w_out: (C, D), b_out, g_bias: (D,), all fp32 contiguous. C, D in
     ``TRI_WIDTHS``. The bf16 workspace (``triangle_workspace``, about twice
     a_lin's size) is allocated here with ``torch.empty``; no (B, I, J, C)
-    buffer is. Returns (out (B, I, J, D) in a_lin's dtype, mean and inv
-    (B, I, J) fp32)."""
+    buffer is. ``tile`` (AutoChunk's ``tri_k_tile``) is accepted and
+    ignored: the k tile is ``TRI_TILE``, fixed by the fragment layout, and
+    the workspace holds the whole gated a and b, which a j or k tile would
+    not shrink without a new design. Returns (out (B, I, J, D) in a_lin's
+    dtype, mean and inv (B, I, J) fp32)."""
     fn = "fused_triangle_cuda"
     _check_input(fn, a_lin)
     bsz, ni, nk, c = a_lin.shape
@@ -180,7 +184,7 @@ def _opm_checked(fn, *ts):
     return geom if geom is not None else _opm_geometry(fn, *ts, key)
 
 
-def fused_opm_cuda(a, b_full, mask_a, mask_b, w, bias):
+def fused_opm_cuda(a, b_full, mask_a, mask_b, w, bias, tile: int = 0):
     """(vec(sum_s a[s,i] ⊗ b[s,j]) / (sum_s mask_a·mask_b + 1e-3)) @ w + bias,
     one kernel.
 
@@ -190,7 +194,10 @@ def fused_opm_cuda(a, b_full, mask_a, mask_b, w, bias):
     bf16 a, b_full and w 16-byte aligned (the kernel reads them through
     TMA). C in ``OPM_C``, D in ``OPM_D``. Returns (B, I, J, D) in a's dtype.
     The checks that depend only on shapes, strides and dtypes run once per
-    distinct combination (``_opm_geometry``)."""
+    distinct combination (``_opm_geometry``). ``tile`` (AutoChunk's
+    ``opm_s_tile``) is accepted and ignored: the kernel's s stages and
+    8 x 8-pixel tiles are fixed by its TMA boxes and stay on chip, and it
+    allocates only its output."""
     fn = "fused_opm_cuda"
     if not a.is_cuda:
         raise ValueError(f"{fn} needs CUDA tensors, got {a.device}")

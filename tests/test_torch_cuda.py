@@ -611,3 +611,140 @@ def test_oracle_plan_launches_nothing(gen):
                        torch.zeros(8, device="cuda"))
         ops.fused_softmax(x.view(1, 1, 4, 8))
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# AutoChunk's knobs on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kv_tile", [64, 128])
+def test_flash_attention_takes_and_ignores_kv_tile(gen, kv_tile, dtype, tol):
+    """K5's wrapper accepts AutoChunk's KV tile and launches the same
+    kernel on the same numbers; the plain version takes that many query
+    rows at a time, on the same numbers."""
+    q, k, v, b, m = _flash_inputs(gen, 6, 200, 200, 2, 32, 2, True, True,
+                                  dtype)
+    _build.reset_launches()
+    out, lse = flash_attention_cuda(q, k, v, b, m, 32 ** -0.5,
+                                    kv_tile=kv_tile)
+    base, base_lse = flash_attention_cuda(q, k, v, b, m, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_fwd"] == 2
+    assert torch.equal(out, base) and torch.equal(lse, base_lse)
+    want, want_lse = ref.attention_ref(q, k, v, b, m, 32 ** -0.5,
+                                       kv_tile=kv_tile)
+    whole, whole_lse = ref.attention_ref(q, k, v, b, m, 32 ** -0.5)
+    _close(want, whole, 1e-6)
+    _close(want_lse, whole_lse, 1e-6)
+    _close(out, want, tol)
+    got = ops.fused_attention(q, k, v, bias=b, mask=m, kv_tile=kv_tile)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tile", [16, 64])
+def test_triangle_and_opm_take_and_ignore_their_tile(gen, tile, dtype, tol):
+    """K7's and K8's wrappers accept AutoChunk's tile and launch the same
+    kernel on the same numbers; the plain versions take j blocks of the
+    tile, on the same numbers."""
+    c = d = 128
+    ab = _randn(gen, (1, 70, 50, 2 * c), 1.0, dtype)
+    g = _randn(gen, (1, 70, 50, 2 * c), 2.0, dtype)
+    mask = (torch.rand((1, 70, 50), generator=gen, device="cuda")
+            < 0.8).float()
+    args = (ab[..., :c], g[..., :c], mask, _randn(gen, (1, 90, 50, c), 1.0, dtype),
+            1 + _randn(gen, (c,), 0.1), _randn(gen, (c,), 0.1),
+            _randn(gen, (c, d), c ** -0.5), _randn(gen, (d,), 0.1),
+            _randn(gen, (1, 70, 90, d), 2.0, dtype), _randn(gen, (d,)))
+    _build.reset_launches()
+    out = fused_triangle_cuda(*args, tile=tile)
+    base = fused_triangle_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["triangle_mult"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(out, base))
+    # The plain version in j blocks: the same sums, rounded once to the
+    # dtype (in bf16 a product of another M may round to the next value).
+    want = ref.triangle_mult_ref(*args, tile=tile)
+    for x, y in zip(want, ref.triangle_mult_ref(*args)):
+        _close(x, y, tol)
+    _close(out[0], want[0], tol)
+    _close(ops.fused_triangle_mult(*args, tile=tile), want[0], tol)
+
+    oc, ns = 32, 40
+    omask = (torch.rand((1, ns, 70), generator=gen, device="cuda")
+             < 0.8).float()
+    a = _randn(gen, (1, ns, 70, oc), 1.0, dtype) * omask[..., None].to(dtype)
+    b = _randn(gen, (1, ns, 70, oc), 1.0, dtype) * omask[..., None].to(dtype)
+    w, bias = _randn(gen, (oc * oc, d), 1.0 / oc, dtype), _randn(gen, (d,))
+    _build.reset_launches()
+    out = fused_opm_cuda(a, b, omask, omask, w, bias, tile=tile)
+    assert torch.equal(out, fused_opm_cuda(a, b, omask, omask, w, bias))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["outer_product_mean"] == 2
+    want = ref.outer_product_mean_ref(a, b, omask, omask, w, bias, tile=tile)
+    _close(want, ref.outer_product_mean_ref(a, b, omask, omask, w, bias),
+           tol)
+    _close(out, want, tol)
+    _close(ops.fused_outer_product_mean(a, b, omask, omask, w, bias,
+                                        tile=tile), want, tol)
+
+
+@pytest.mark.parametrize("kernels", ["default", "attention-oracle"])
+@pytest.mark.parametrize("knobs", [
+    {"inference_chunk": 16},
+    {"inference_chunk": 8, "opm_chunk": 16, "attn_kv_tile": 128,
+     "tri_k_tile": 16, "opm_s_tile": 16}])
+def test_chunked_fold_matches_unchunked(gen, knobs, kernels):
+    """A MINI-width fold on the card (its widths take K5, K7 and K8), r =
+    64, s = 16, bf16, with forced chunk knobs against the same fold with
+    none: within the bf16 module tolerance, and the attention kernel (K5,
+    or K4 under attention-oracle) and the output gate launched once per
+    chunk at every site."""
+    import dataclasses
+
+    from repro_torch.configs import MINI
+    from repro_torch.data import protein_batches
+    from repro_torch.exec import FastFold
+    from repro_torch.exec.plan import MemoryPolicy
+
+    cfg = dataclasses.replace(MINI, n_recycle=0)
+    kern = (KernelPolicy(attention="oracle") if kernels == "attention-oracle"
+            else KernelPolicy())
+    s, r = 16, 64
+    batch = next(protein_batches(batch=1, n_seq=s, n_res=r, seed=3,
+                                 n_real=57)).as_dict()
+    ff = FastFold(cfg)
+    params = ff.init(seed=1)
+    outs, counts = {}, {}
+    for name, mem in (("none", MemoryPolicy(auto_chunk=False)),
+                      ("knobs", MemoryPolicy(**knobs))):
+        _build.reset_launches()
+        outs[name] = ff.forward(params, batch, plan=ExecutionPlan(
+            kernels=kern, memory=mem))
+        torch.cuda.synchronize()
+        counts[name] = dict(_build.LAUNCHES)
+    for k in ("coords", "msa_logits", "distogram_logits", "pair"):
+        _close(outs["knobs"][k], outs["none"][k], 2e-2)
+    ic = knobs["inference_chunk"]
+    chunks = s // ic + 3 * (r // ic)          # MSA row, MSA col, 2 triangle
+    nb = cfg.evoformer.n_blocks
+    attn = "fused_softmax" if kernels == "attention-oracle" \
+        else "flash_attention_fwd"
+    assert counts["none"][attn] == 4 * nb
+    assert counts["knobs"][attn] == chunks * nb
+    assert (counts["knobs"]["bias_sigmoid_mul"]
+            - counts["none"]["bias_sigmoid_mul"]) == (chunks - 4) * nb
+    for k in ("triangle_mult", "outer_product_mean", "layer_norm"):
+        assert counts["knobs"][k] == counts["none"][k]
+
+
+def test_card_budget_is_the_cards_memory_less_what_is_allocated(gen):
+    from repro_torch.device import hbm_budget_bytes
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    x = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    assert hbm_budget_bytes("cuda") == total - torch.cuda.memory_allocated()
+    assert hbm_budget_bytes("cuda") <= total - x.numel()

@@ -35,7 +35,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "torch_profile_serve.py"]
+                                         ROOT / "scripts" / "torch_profile_serve.py",
+                                         ROOT / "scripts" / "torch_fold_memory.py",
+                                         ROOT / "scripts" / "torch_fold_latency.py"]
 
 
 def _imported_modules(path: Path):
@@ -351,8 +353,8 @@ def _fake_card(monkeypatch):
         "fused_softmax_cuda": ref.softmax_ref,
     }
     for name, fn in fakes.items():
-        monkeypatch.setattr(ops, name, lambda *a, _f=fn, _n=name: (
-            calls.append(_n), _f(*a))[1])
+        monkeypatch.setattr(ops, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
     return calls
 
 

@@ -111,9 +111,6 @@ def test_environment_selects_the_reference_plan(env, monkeypatch):
 
 @pytest.mark.parametrize("plan,item", [
     (tplan.ExecutionPlan().with_parallel(backend="shard_map"), "item 3"),
-    (tplan.ExecutionPlan().with_memory(inference_chunk=4), "item 4"),
-    (tplan.ExecutionPlan().with_memory(hbm_budget=1 << 30), "item 4"),
-    (tplan.ExecutionPlan().with_memory(auto_chunk=True), "item 4"),
 ])
 def test_fastfold_raises_on_what_the_port_does_not_serve(plan, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
@@ -122,12 +119,97 @@ def test_fastfold_raises_on_what_the_port_does_not_serve(plan, item):
     batch = next(protein_batches(batch=1, n_seq=3, n_res=6, seed=0)).as_dict()
     with pytest.raises(NotImplementedError, match=item):
         ff.forward(ff.init(0), batch, plan=plan)
+    with pytest.raises(NotImplementedError, match=item):
+        plan.parallel.make_dist()
+
+
+def _reference_forward(tree, batch, plan, n_recycle=None):
+    """The reference's fp32 SMOKE forward under the reference's copy of
+    ``plan`` (its JSON form)."""
+    from repro.core.alphafold import alphafold_forward
+
+    j_cfg = dataclasses.replace(J_SMOKE, compute_dtype=jnp.float32)
+    with jplan.use_plan(jplan.ExecutionPlan.from_json(plan.to_json())):
+        fn = jax.jit(lambda p, b: alphafold_forward(p, b, j_cfg,
+                                                    n_recycle=n_recycle))
+        return fn(jax.tree.map(jnp.asarray, tree),
+                  {k: jnp.asarray(v) for k, v in batch.items()})
+
+
+# The MemoryPolicy requests the port refused before it served AutoChunk:
+# each now runs, on the reference's numbers.
+MEMORY_PLANS = {
+    "inference_chunk": tplan.ExecutionPlan().with_memory(inference_chunk=4),
+    "hbm_budget": tplan.ExecutionPlan().with_memory(hbm_budget=1 << 30),
+    "auto_chunk": tplan.ExecutionPlan().with_memory(auto_chunk=True),
+}
+
+
+@pytest.mark.parametrize("name", list(MEMORY_PLANS))
+def test_fastfold_runs_memory_plans_as_the_reference(name):
+    plan = MEMORY_PLANS[name]
+    tree = randomize_tree(_jax_smoke_tree(), 43)
+    ff = FastFold(dataclasses.replace(T_SMOKE, compute_dtype=torch.float32),
+                  device="cpu", plan=plan)
+    assert ff.plan is plan
+    batch = next(protein_batches(batch=1, n_seq=4, n_res=8, seed=5)).as_dict()
+    got = ff.forward(params_from_numpy(tree, device="cpu"), batch)
+    want = _reference_forward(tree, batch, plan)
+    for k in ("coords", "msa_logits", "distogram_logits", "pair"):
+        assert_close(got[k], want[k], 1e-3, k)
 
 
 def test_fastfold_accepts_opm_chunk_and_async():
     plan = (tplan.ExecutionPlan().with_memory(opm_chunk=4, auto_chunk=False)
             .with_async(overlap_windows=False))
     assert FastFold(T_SMOKE, device="cpu", plan=plan).plan is plan
+
+
+@pytest.mark.parametrize("start", ["default", "triangle-oracle"])
+def test_every_degrade_rung_runs(start):
+    """Every rung of ``degrade()`` (the tightest chunk and tile knobs, then
+    every op on its plain version) serves a SMOKE forward on the CPU, on
+    the reference's numbers under the same rung."""
+    tree = randomize_tree(_jax_smoke_tree(), 44)
+    params = params_from_numpy(tree, device="cpu")
+    ff = FastFold(dataclasses.replace(T_SMOKE, compute_dtype=torch.float32),
+                  device="cpu")
+    batch = next(protein_batches(batch=1, n_seq=4, n_res=16, seed=6,
+                                 n_real=13)).as_dict()
+    rungs = _degrade_chain(tplan.preset(start))
+    assert len(rungs) == 3
+    assert rungs[1].memory.inference_chunk == 1
+    for rung in rungs:
+        got = ff.forward(params, batch, n_recycle=0, plan=rung)
+        want = _reference_forward(tree, batch, rung, n_recycle=0)
+        for k in ("coords", "distogram_logits", "pair"):
+            assert_close(got[k], want[k], 1e-3, f"{rung.describe()} {k}")
+
+
+def test_forward_takes_rng_and_train():
+    """``FastFold.forward(rng=, train=)``: ``train=False`` is the
+    reference's forward; ``train=True`` without an rng builds the graph on
+    the same numbers; with an rng it draws dropout masks."""
+    tree = randomize_tree(_jax_smoke_tree(), 45)
+    params = params_from_numpy(tree, device="cpu")
+    ff = FastFold(dataclasses.replace(T_SMOKE, compute_dtype=torch.float32),
+                  device="cpu", plan=tplan.preset("default"))
+    batch = next(protein_batches(batch=1, n_seq=4, n_res=8, seed=7)).as_dict()
+    for p in params["evoformer"][0]["msa_row"]["attn"]["wqkv"].values():
+        p.requires_grad_(True)
+    gen = torch.Generator().manual_seed(3)
+    infer = ff.forward(params, batch, rng=gen, train=False)
+    want = _reference_forward(tree, batch, tplan.preset("default"))
+    for k in ("coords", "msa_logits", "distogram_logits", "pair"):
+        assert_close(infer[k], want[k], 1e-3, k)
+    assert not infer["pair"].requires_grad
+    plain = ff.forward(params, batch, rng=None, train=True)
+    assert plain["pair"].requires_grad
+    for k in ("coords", "msa_logits", "distogram_logits", "pair"):
+        torch.testing.assert_close(plain[k].detach(), infer[k],
+                                   rtol=0, atol=0)
+    dropped = ff.forward(params, batch, rng=gen, train=True)
+    assert not torch.equal(dropped["pair"].detach(), infer["pair"])
 
 
 def test_serve_takes_one_plan_per_request():
