@@ -46,10 +46,23 @@ Phases, each printing JSON lines:
                step, launch counts equal to the count the config gives, warm
                step time and peak device memory; then two steps (one
                uncounted) under attention-oracle, with its own counts;
+     train dots — the same step under ``remat_policy="dots"`` (each
+               checkpointed block keeps its matrix products): one uncounted
+               step held against the first step above, one counted; launches
+               equal to the config's count, step time and peak memory beside
+               the nothing policy's;
+     resume — crash-safe checkpoints at the same setting: steps 1-3 under a
+               tracer, a checkpoint after step 1, an injected fault killing
+               the save after step 2, the newest intact checkpoint restored
+               bit for bit, steps 2-3 again from it and held against the
+               first run; checkpoint bytes, save and restore seconds, and a
+               schema-valid trace with one event a step;
   9. train parity — FULL width cut to 2 blocks, no recycling, no dropout,
                fp32, randomised weights, r = 128, s = 64: the gradient of
                every parameter on the card and with ``device="cpu"``, held
-               together, under the default plan and under attention-oracle;
+               together, under the default plan and under attention-oracle,
+               each at the random point and at a point whose FAPE pair
+               errors all lie below half the loss's clamp (``OFF_CLAMP``);
  10. long    — AutoChunk at long sequences, FULL widths cut to 2 blocks, no
                recycling, s = 128, bf16, through ``FastFold.forward``:
                (a) attention-oracle at r = 2048 on the card's own budget
@@ -75,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -134,6 +148,18 @@ E2E_TOL = 1e-3
 # Training, fp32, card vs CPU, 2 blocks: every parameter's gradient within
 # GRAD_TOL * max(1, max|cpu gradient|) of that leaf.
 GRAD_TOL = 1e-3
+# A second, well-conditioned point of that check. At random weights nearly
+# every FAPE pair error of its input lies beyond the loss's 10 Å clamp, and
+# a pair near the clamp jumps a gradient (structure.bb_update.w) when an
+# activation moves by one ulp. Scaling the structure module's backbone
+# update and the true positions by these factors brings every pair error
+# below half the clamp, which the phase measures on the CPU and holds.
+OFF_CLAMP = {"bb_update": 0.01, "pseudo_beta": 0.05}
+FAPE_CLAMP = 10.0
+# Resuming from a checkpoint, and the dots remat policy against nothing,
+# bf16 at FULL width: losses and gradient norms within this relative
+# difference of the uninterrupted run's, or of the nothing policy's.
+RESUME_TOL = 1e-3
 # The plans the script drives, by the name its lines use.
 PLAN_NAMES = ("default", "attention-oracle", "triangle-oracle", "oracle")
 # The path whose launches stand in a kernel's line: the default plan's
@@ -143,9 +169,6 @@ KERNEL_PATHS = {"flash_attention_bwd": "train",
                 "bias_dropout_add": "train",
                 "fused_softmax": "serve attention-oracle"}
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 SOURCES = {
     "layer_norm": ("src/repro_torch/csrc/layer_norm.cu",
@@ -223,8 +246,12 @@ def nbytes(*ts) -> int:
 def bound(bytes_moved: int, ops: float, dtype: str) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate, operations over
     the peak rate of the inputs' type; the larger one, in ms."""
-    t_mem = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    from repro_torch import device
+
+    peak = {"float32": device.PEAK_FLOPS_FP32,
+            "bfloat16": device.PEAK_FLOPS_BF16}
+    t_mem = bytes_moved / device.HBM_BW * 1e3
+    t_ops = ops / peak[dtype] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -1480,6 +1507,7 @@ def train_phase(torch, plan: str = "default", n_steps: int = 3):
 
     secs, vals = run(batches[0])                  # warm-up, not counted
     checked(0, secs, vals)
+    first = {k: vals[k] for k in ("loss", "grad_norm")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()                      # the main path starts here
@@ -1505,17 +1533,203 @@ def train_phase(torch, plan: str = "default", n_steps: int = 3):
                            FULL.evoformer.dropout_pair],
                "warm_step_s": statistics.mean(times), "step_s": times,
                "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
-               "launches_per_step": per_step}
+               "launches_per_step": per_step, "step0": first}
     emit(summary)
     del state
     return launches, summary
 
 
-def train_parity_phase(torch, tree, plan: str = "default"):
+def _full(remat_policy: str = "nothing"):
+    from repro_torch.configs import FULL
+
+    return dataclasses.replace(FULL, evoformer=dataclasses.replace(
+        FULL.evoformer, remat_policy=remat_policy))
+
+
+def train_dots_phase(torch, nothing: dict):
+    """The training step of ``train_phase`` under ``remat_policy="dots"``
+    (each checkpointed block keeps its matrix products): the same init,
+    batches and dropout generator, one uncounted step, then one counted.
+    Its first step is held against ``nothing``'s (the default plan's
+    ``train_summary``) at RESUME_TOL; its launches must equal the config's
+    count, as every kernel is still recomputed."""
+    from repro_torch.exec import FastFold
+    from repro_torch.kernels import _build
+    from repro_torch.train import make_train_step
+
+    cfg = _full("dots")
+    ff = FastFold(cfg, plan=plan_of("default"))
+    init, step = make_train_step(ff.loss_fn)
+    state = init(ff.init(seed=SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batches = train_batches(2)
+    per_step = expected_train_launches(cfg)
+    rows = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()              # the counted step starts
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        vals = {k: float(metrics[k]) for k in ("loss", "grad_norm",
+                                               "nonfinite_skips")}
+        torch.cuda.synchronize()
+        rows.append({"phase": "train_dots", "step": i, "counted": i == 1,
+                     "step_s": time.perf_counter() - t0, **vals})
+        emit(rows[-1])
+    counts = {k: _build.LAUNCHES[k] for k in per_step}
+    peak = torch.cuda.max_memory_allocated()
+    rel = {k: abs(rows[0][k] - nothing["step0"][k]) / abs(nothing["step0"][k])
+           for k in ("loss", "grad_norm")}
+    row = {"phase": "train_dots_summary", "remat_policy": "dots",
+           "plan": "default", "n_res": TRAIN_SHAPE["n_res"],
+           "n_seq": TRAIN_SHAPE["n_seq"], "n_blocks": cfg.evoformer.n_blocks,
+           "step_s": rows[1]["step_s"], "peak_memory_bytes": peak,
+           "peak_memory_gb": peak / 1e9, "launches": counts,
+           "expected_launches": per_step,
+           "step0_rel_diff_vs_nothing": rel,
+           "step0_bitwise_vs_nothing": {
+               k: rows[0][k] == nothing["step0"][k] for k in rel},
+           "nothing": {"warm_step_s": nothing["warm_step_s"],
+                       "peak_memory_bytes": nothing["peak_memory_bytes"],
+                       "peak_memory_gb": nothing["peak_memory_gb"]}}
+    row["ok"] = (counts == per_step and max(rel.values()) <= RESUME_TOL
+                 and all(r["nonfinite_skips"] == 0.0 for r in rows))
+    emit(row)
+    if counts != per_step:
+        fail(f"train dots: launches {counts} != expected {per_step}")
+    if not row["ok"]:
+        fail(f"train dots: first step off the nothing policy's, or skipped: "
+             f"{row}")
+    del state
+    return counts
+
+
+def resume_phase(torch):
+    """Crash-safe checkpoints and resume at the training setting of
+    ``train_phase``, through the entry points a trainer calls
+    (``scripts/torch_train_alphafold.py``): step k takes batch k and
+    dropout masks from a generator seeded by k. Run A takes steps 1-3 under
+    a tracer, saves after step 1, and saves after step 2 under an injected
+    ``checkpoint.save`` fault, which must raise ``TransientDecodeFault``.
+    ``latest_checkpoint`` must then give step 1's file, restored bit for bit
+    to the state saved; run B takes steps 2-3 from it. B's losses and
+    gradient norms must equal A's within RESUME_TOL (relative); the trace
+    must be schema-valid with one ``train_step`` event a step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.exec import FastFold
+    from repro_torch.layers.params import tree_leaves
+    from repro_torch.obs import Tracer, use_tracer, validate_events
+    from repro_torch.resilience import (FaultSpec, TransientDecodeFault,
+                                        inject_faults)
+    from repro_torch.train import instrument_train_step, make_train_step
+    from repro_torch.train.checkpoint import (latest_checkpoint,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+
+    ff = FastFold(_full(), plan=plan_of("default"))
+    init, train_step = make_train_step(ff.loss_fn)
+    batches = train_batches(3)
+    tracer = Tracer()
+
+    def take(step, state, run, rows):
+        k = int(state.step)
+        masks = torch.Generator(device="cuda").manual_seed(k)
+        t0 = time.perf_counter()
+        with use_tracer(tracer):
+            state, metrics = step(state, batches[k], masks)
+        vals = {m: float(metrics[m]) for m in ("loss", "grad_norm",
+                                               "nonfinite_skips")}
+        torch.cuda.synchronize()
+        rows[k + 1] = {"phase": "resume", "run": run, "step": k + 1,
+                       "step_s": time.perf_counter() - t0, **vals}
+        emit(rows[k + 1])
+        return state
+
+    ckdir = tempfile.mkdtemp(prefix="resume_", dir=ROOT / "build")
+    try:
+        a_rows, b_rows = {}, {}
+        step_a = instrument_train_step(train_step)
+        state = take(step_a, init(ff.init(seed=SEED)), "A", a_rows)
+        saved = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckdir, 1, state)
+        save_s = time.perf_counter() - t0
+        state = take(step_a, state, "A", a_rows)
+        try:
+            with inject_faults(FaultSpec("transient", "checkpoint.save",
+                                         step=2)):
+                save_checkpoint(ckdir, 2, state)
+        except TransientDecodeFault:
+            crashed = True
+        else:
+            crashed = False
+        state_a = take(step_a, state, "A", a_rows)
+        del state
+        latest = latest_checkpoint(ckdir)
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(latest, saved)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves(list(restored)),
+                         tree_leaves(list(saved))))
+        restored_equal = all(
+            r.dtype == s.dtype and r.device == s.device and torch.equal(r, s)
+            for r, s in pairs)
+        nbytes = os.path.getsize(path)
+        del saved, pairs
+        step_b = instrument_train_step(train_step)
+        state_b = restored
+        for _ in range(2):
+            state_b = take(step_b, state_b, "B", b_rows)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    leaves_a = tree_leaves(list(state_a))
+    leaves_b = tree_leaves(list(state_b))
+    bitwise = all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b))
+    max_param_diff = max(
+        (a.float() - b.float()).abs().max().item()
+        for a, b in zip(tree_leaves(state_a.params),
+                        tree_leaves(state_b.params)))
+    rel = {f"{k}_step{i}": abs(b_rows[i][k] - a_rows[i][k]) / abs(a_rows[i][k])
+           for i in (2, 3) for k in ("loss", "grad_norm")}
+    events = tracer.events_resolved()
+    problems = validate_events(events)
+    n_train = sum(e["kind"] == "train_step" for e in events)
+    row = {"phase": "resume_summary", "plan": "default",
+           "n_res": TRAIN_SHAPE["n_res"], "n_seq": TRAIN_SHAPE["n_seq"],
+           "n_blocks": ff.config.evoformer.n_blocks,
+           "fault": "transient at checkpoint.save, "
+           "step 2", "fault_raised": crashed,
+           "latest_checkpoint": os.path.basename(latest or ""),
+           "restored_bitwise": restored_equal,
+           "checkpoint_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s, "rel_diff_b_vs_a": rel, "tol": RESUME_TOL,
+           "b_equals_a_bitwise": bitwise,
+           "max_param_abs_diff_after_step3": max_param_diff,
+           "trace": {"events": len(events), "train_step_events": n_train,
+                     "steps_taken": len(a_rows) + len(b_rows),
+                     "problems": problems[:5]}}
+    row["ok"] = (crashed and row["latest_checkpoint"] == "ckpt_00000001.npz"
+                 and restored_equal and max(rel.values()) <= RESUME_TOL
+                 and not problems and n_train == len(a_rows) + len(b_rows))
+    emit(row)
+    if not row["ok"]:
+        fail(f"resume: {row}")
+
+
+def train_parity_phase(torch, tree, plan: str = "default",
+                       point: str = "random"):
     """The kernel path against the plain path through the backward: the
     FULL-width model cut to 2 blocks and no recycling, fp32, no dropout,
     randomised weights, r = 128, s = 64; the gradient of every parameter
-    on the card and on the CPU, both under ``plan``."""
+    on the card and on the CPU, both under ``plan``. ``point`` "off-clamp"
+    scales the inputs as ``OFF_CLAMP`` says and holds its largest FAPE pair
+    error below half the clamp, on the CPU."""
     from repro_torch.configs import FULL
     from repro_torch.exec import FastFold
     from repro_torch.layers.params import tree_leaves, tree_map
@@ -1525,6 +1739,10 @@ def train_parity_phase(torch, tree, plan: str = "default"):
     cfg = _cut(FULL, n_blocks)
     cut = dict(tree, evoformer=_slice_tree(tree["evoformer"], n_blocks))
     batch = train_batches(1, n_res=128, n_seq=64)[0]
+    pair_error = None
+    if point == "off-clamp":
+        cut, batch = _off_clamp(cut, batch)
+        pair_error = _max_pair_error(torch, cut, batch, cfg)
     grads, losses, secs = {}, {}, {}
     for dev in ("cuda", "cpu"):
         ff = FastFold(cfg, device=dev, dtype=torch.float32, plan=plan_of(plan))
@@ -1542,7 +1760,7 @@ def train_parity_phase(torch, tree, plan: str = "default"):
         if rel >= worst[1]:
             worst = (err, rel, i)
     names = _leaf_names(params)
-    row = {"phase": "train_parity_fp32", "plan": plan,
+    row = {"phase": "train_parity_fp32", "plan": plan, "point": point,
            "cut": {"n_blocks": n_blocks, "n_recycle": 0}, "width": "FULL",
            "n_res": 128, "n_seq": 64, "dropout": False, "tol": GRAD_TOL,
            "leaves": len(grads["cpu"]), "loss": losses,
@@ -1552,10 +1770,50 @@ def train_parity_phase(torch, tree, plan: str = "default"):
            "worst_max_rel_diff": worst[1], "seconds": secs,
            "ok": worst[1] <= GRAD_TOL and all(
                torch.isfinite(g).all() for g in grads["cuda"])}
+    if pair_error is not None:
+        row.update({"off_clamp": OFF_CLAMP, "max_pair_error_A": pair_error,
+                    "fape_clamp_A": FAPE_CLAMP})
+        row["ok"] &= pair_error < FAPE_CLAMP / 2
     emit(row)
     if not row["ok"]:
         fail(f"fp32 gradients of the kernel path and the plain path disagree "
-             f"under {plan}: {names[worst[2]]} {worst[1]:.3g} > {GRAD_TOL}")
+             f"under {plan} at the {point} point: {names[worst[2]]} "
+             f"{worst[1]:.3g} > {GRAD_TOL}, or a FAPE pair error "
+             f"{pair_error} not below half the clamp")
+
+
+def _off_clamp(tree, batch):
+    """C1's well-conditioned point: the structure module's backbone update
+    and the true positions scaled by ``OFF_CLAMP``."""
+    st = dict(tree["structure"])
+    st["bb_update"] = {k: v * OFF_CLAMP["bb_update"]
+                       for k, v in st["bb_update"].items()}
+    batch = dict(batch, pseudo_beta=batch["pseudo_beta"]
+                 * OFF_CLAMP["pseudo_beta"])
+    return dict(tree, structure=st), batch
+
+
+def _max_pair_error(torch, tree, batch, cfg) -> float:
+    """The largest FAPE pair error, in Å, over the final frames and every
+    iteration of the structure module's trajectory: the plain path on the
+    CPU, fp32, the training forward without dropout."""
+    from repro_torch.core.alphafold import alphafold_forward
+    from repro_torch.core.losses import _pairwise_local, true_frames_from_ca
+    from repro_torch.exec import FastFold
+    from repro_torch.weights import params_from_numpy
+
+    ff = FastFold(cfg, device="cpu", dtype=torch.float32)
+    b = ff.batch_to_device(batch)
+    with torch.no_grad():
+        out = alphafold_forward(params_from_numpy(tree, device="cpu"), b,
+                                ff.config, train=True)
+    true_pos = b["pseudo_beta"]
+    want = _pairwise_local(*true_frames_from_ca(true_pos), true_pos)
+    worst = 0.0
+    for rot, trans in [out["frames"], *zip(*out["traj"])]:
+        err = (_pairwise_local(rot, trans, trans) - want).square().sum(-1)
+        worst = max(worst, err.max().sqrt().item())
+    return worst
 
 
 def _leaf_names(tree, prefix=""):
@@ -2058,11 +2316,14 @@ def main() -> int:
         torch, tree, batches, "attention-oracle", baseline=latencies)
     smoke_phase(torch)
     parity_phase(torch, tree, batches)
-    launches["train"], _ = train_phase(torch)
+    launches["train"], nothing = train_phase(torch)
     launches["train attention-oracle"], _ = train_phase(
         torch, "attention-oracle", n_steps=2)
+    launches["train dots"] = train_dots_phase(torch, nothing)
+    resume_phase(torch)
     for plan in ("default", "attention-oracle"):
-        train_parity_phase(torch, tree, plan)
+        for point in ("random", "off-clamp"):
+            train_parity_phase(torch, tree, plan, point)
     chunk = long_phase(torch, tree)
     long_kernel_phase(torch, Timer(torch), chunk)
 

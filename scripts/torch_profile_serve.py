@@ -3,7 +3,7 @@
 on the GPU (PyTorch port).
 
     PYTHONPATH=src python scripts/torch_profile_serve.py [--n-res 256 384] [--n-seq 128]
-    PYTHONPATH=src python scripts/torch_profile_serve.py --train [--n-res 256]
+    PYTHONPATH=src python scripts/torch_profile_serve.py --train [--n-res 256] [--remat-policy dots]
     PYTHONPATH=src python scripts/torch_profile_serve.py --plan attention-oracle
     PYTHONPATH=src python scripts/torch_profile_serve.py --attention --n-res 256 384
     PYTHONPATH=src python scripts/torch_profile_serve.py --triangle-dropout --n-res 256 384
@@ -81,7 +81,8 @@ remat per block, dropout from a seeded generator) after a warm-up step, and
 first times the step's parts apart, each ending in a synchronise: the
 training loss's forward with all its passes, the same with no recycling
 (the grad pass alone), its backward (the blocks' recompute included), and
-the whole step.
+the whole step; ``--remat-policy dots`` makes each checkpointed block keep
+its matrix products for the backward.
 
 A kernel is grouped by the operator that launched it, not by its name: the
 profiler's raw events give each kernel the correlation id of a CPU event (the
@@ -99,6 +100,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -110,6 +112,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import FULL
+from repro_torch.core.evoformer import REMAT_CONTEXTS
 from repro_torch.data import protein_batches
 from repro_torch.exec import ExecutionPlan, FastFold, KernelPolicy, PRESETS
 from repro_torch.kernels import _build
@@ -680,6 +683,10 @@ def main() -> None:
                          "whose K2 and K4 are timed beside this tree's")
     ap.add_argument("--plan", choices=sorted(PLANS), default="default",
                     help="the ExecutionPlan the model runs under")
+    ap.add_argument("--remat-policy", choices=sorted(REMAT_CONTEXTS),
+                    default="nothing",
+                    help="with --train: what each checkpointed Evoformer "
+                         "block keeps for the backward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_serve: needs a CUDA device")
@@ -700,7 +707,9 @@ def main() -> None:
         gate_softmax_profile(args.n_res, args.n_seq, args.seed, smi,
                              args.parent)
         return
-    ff = FastFold(FULL, plan=PLANS[args.plan])
+    cfg = dataclasses.replace(FULL, evoformer=dataclasses.replace(
+        FULL.evoformer, remat_policy=args.remat_policy))
+    ff = FastFold(cfg, plan=PLANS[args.plan])
     if args.train:
         params = ff.init(seed=args.seed)
     else:
@@ -724,6 +733,8 @@ def main() -> None:
             raise SystemExit("torch_profile_serve: the profiler recorded no "
                              "device time")
         head = {"n_res": n_res, "n_seq": args.n_seq, "plan": args.plan}
+        if args.train:
+            head["remat_policy"] = args.remat_policy
         print(json.dumps({
             "device": smi, **head, "n_blocks": FULL.evoformer.n_blocks,
             "n_recycle": FULL.n_recycle, "latency_s": latency, **extra,

@@ -30,6 +30,12 @@ class EvoformerConfig:
     dropout_msa: float = 0.15
     dropout_pair: float = 0.25
     n_blocks: int = 48
+    # What a checkpointed block keeps for its backward (the reference's
+    # remat policy): "nothing" keeps only its inputs and recomputes all
+    # (least memory), "dots" also keeps the outputs of its matrix products
+    # (less recompute, more activation memory). Read by
+    # ``core.evoformer.evoformer_stack`` when it checkpoints each block.
+    remat_policy: str = "nothing"
     # OPM j-chunking of the materialized branch: the (B, r, r, c, c) outer
     # product is formed in j blocks of this size (0 = the whole row; a
     # block that does not divide r runs the whole row, as in the reference).

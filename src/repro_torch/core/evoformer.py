@@ -37,14 +37,19 @@ Training: the six residual adds that the reference drops out go through
 ``ops.bias_dropout_add`` with their keep masks (drawn by the caller, see
 ``core.alphafold.draw_dropout_keeps``, at the reduced shape of the
 reference's shared axis), and ``evoformer_stack(remat=True)`` recomputes each
-block in the backward (``torch.utils.checkpoint``, the reference's
-``nothing_saveable`` policy) under the plan the forward ran under. Masks are
-never drawn inside a checkpointed block, so the recompute sees the same ones.
+block in the backward (``torch.utils.checkpoint``) under the plan the forward
+ran under. ``cfg.remat_policy`` says what a block keeps: "nothing" (the
+reference's ``nothing_saveable``) only its inputs, "dots" (its
+``dots_saveable``) also the outputs of its matrix products. Masks are never
+drawn inside a checkpointed block, so the recompute sees the same ones.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.configs.alphafold import EvoformerConfig
 from repro_torch.exec.plan import current_plan, use_plan
@@ -353,6 +358,29 @@ def evoformer_block(params: Params, msa: torch.Tensor, pair: torch.Tensor,
     return msa, pair
 
 
+# The aten matrix products whose outputs the "dots" policy keeps: the
+# reference's ``dots_saveable`` keeps every ``dot_general``. The hand-written
+# kernels launch outside the dispatcher, so, like a ``pallas_call`` under
+# ``dots_saveable``, they are recomputed; so is every other aten op,
+# including the allocation of a kernel's output.
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default,
+                   torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+# remat_policy -> the checkpoint's context_fn.
+REMAT_CONTEXTS = {"nothing": noop_context_fn, "dots": _dots_contexts}
+
+
 def evoformer_stack(params: list[Params], msa: torch.Tensor,
                     pair: torch.Tensor, msa_mask: torch.Tensor,
                     seq_mask: torch.Tensor, pair_mask: torch.Tensor, *,
@@ -360,12 +388,20 @@ def evoformer_stack(params: list[Params], msa: torch.Tensor,
                     remat: bool = False):
     """The n_blocks Evoformer blocks in a Python loop. ``keeps``: one dict
     of dropout masks per block, or None. ``remat``: when a graph is being
-    built, each block keeps only its inputs and runs again in the backward
-    (activation checkpointing per block, the reference's ``remat=True``
-    with ``nothing_saveable``); the recompute runs the whole block, so it
-    launches every kernel of the block a second time. It runs under the plan
+    built, each block runs again in the backward (activation checkpointing
+    per block, the reference's ``remat=True``). Under ``cfg.remat_policy``
+    "nothing" a block keeps only its inputs; under "dots" it also keeps the
+    outputs of its matrix products (a selective checkpoint), which the
+    recompute takes instead of running them again. Either way the recompute
+    runs every kernel of the block a second time. It runs under the plan
     the forward ran under, which the backward's thread does not see unless
-    the block re-enters it, so it takes the forward's branches."""
+    the block re-enters it, so it takes the forward's branches and makes
+    the same products in the same order. An unknown policy raises
+    ValueError."""
+    if cfg.remat_policy not in REMAT_CONTEXTS:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: not one of "
+                         f"{sorted(REMAT_CONTEXTS)}")
+    context_fn = REMAT_CONTEXTS[cfg.remat_policy]
     plan = current_plan()
 
     def block_under_plan(*args, **kw):
@@ -378,7 +414,8 @@ def evoformer_stack(params: list[Params], msa: torch.Tensor,
             with set_checkpoint_early_stop(False):
                 msa, pair = checkpoint(
                     block_under_plan, p, msa, pair, msa_mask, seq_mask,
-                    pair_mask, cfg=cfg, keeps=kb, use_reentrant=False)
+                    pair_mask, cfg=cfg, keeps=kb, use_reentrant=False,
+                    context_fn=context_fn)
         else:
             msa, pair = evoformer_block(p, msa, pair, msa_mask, seq_mask,
                                         pair_mask, cfg=cfg, keeps=kb)

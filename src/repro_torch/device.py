@@ -1,8 +1,16 @@
-"""Where the port runs: the card unless the caller asks for the CPU, and the
-device memory a fold may plan against there."""
+"""Where the port runs: the card unless the caller asks for the CPU, the
+device memory a fold may plan against there, and the card's published
+peaks."""
 from __future__ import annotations
 
 import torch
+
+# Published peaks of the card the port targets, one NVIDIA H100 80GB HBM3
+# (SXM; NVIDIA's data sheet, dense rates, at the card's full power limit of
+# 700 W; a card set below it reaches less). Roofline floors read them here.
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 on the tensor cores
+PEAK_FLOPS_FP32 = 67e12         # FLOP/s, fp32 outside the tensor cores
+HBM_BW = 3.35e12                # bytes/s
 
 # The budget AutoChunk plans against for a fold on the CPU, where no device
 # memory bounds it: a stated constant, not a measurement of any device. The

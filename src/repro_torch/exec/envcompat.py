@@ -1,5 +1,5 @@
-"""The environment variables that select a plan, read in one place: the
-port's copy of the plan part of the reference's ``exec/envcompat.py``.
+"""The environment variables of the port, read in one place: the port's
+copy of the reference's ``exec/envcompat.py``.
 
   REPRO_PLAN=<preset>              start from a named preset
                                    (default | oracle | interpret |
@@ -9,13 +9,15 @@ port's copy of the plan part of the reference's ``exec/envcompat.py``.
   REPRO_FORCE_TRIANGLE_ORACLE=1    -> KernelPolicy.triangle = opm = "oracle"
   REPRO_FORCE_SCAN_ATTN_BWD=1      -> KernelPolicy.attn_bwd = "scan"
 
+  REPRO_FAULT_SEED=<int>           the default seed of a FaultInjector
+                                   (``resilience/faults.py``)
+
 The flags layer on top of the preset. The plan is built when asked for,
 never at import, so a variable set after import takes effect.
 
-Left out: the reference's ``fault_seed`` (the seed of its fault injector,
-which the port has not ported yet: ROADMAP.md Queue 1 item 2) and
-``force_host_device_count`` (an XLA flag for simulated host devices; the
-port's multi-process runs name their world size to ``torch.distributed``).
+Left out: the reference's ``force_host_device_count`` (an XLA flag for
+simulated host devices; the port's multi-process runs name their world size
+to ``torch.distributed``).
 """
 from __future__ import annotations
 
@@ -62,3 +64,11 @@ def plan_from_env():
         p = p.replace(kernels=kern)
     _cache[key] = p
     return p
+
+
+def fault_seed() -> int | None:
+    """Default FaultInjector seed from REPRO_FAULT_SEED (None when unset),
+    so a run can pin a process-wide fault schedule while environment access
+    stays confined to this module."""
+    v = os.environ.get("REPRO_FAULT_SEED")
+    return int(v) if v else None

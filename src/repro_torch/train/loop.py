@@ -10,6 +10,10 @@ step is bit-identical with the guard on or off. A skipped step still
 advances ``state.step`` and reports ``nonfinite_skips = 1``. The selects of
 parameters and moments stay on the device; the optimizer's step count lives
 on the CPU, so selecting it waits for the gradient norm once per step.
+
+``instrument_train_step`` wraps a step so that each call emits one obs
+``train_step`` event when a tracer is scoped, and is the bare call when none
+is.
 """
 from __future__ import annotations
 
@@ -100,7 +104,10 @@ def make_train_step(
                              grads)
             metrics["nonfinite_skips"] = (~ok).float()
         else:
-            metrics["nonfinite_skips"] = torch.zeros((), dtype=torch.float32)
+            # Guard off: the key is still reported, a 0 on the gradient
+            # norm's device like every other metric.
+            metrics["nonfinite_skips"] = torch.zeros((), dtype=torch.float32,
+                                                     device=gnorm.device)
         lr = cosine_schedule(state.step, base_lr, warmup_steps, total_steps)
         new_params, new_opt = opt_update(state.params, grads, state.opt_state,
                                          lr, weight_decay=weight_decay)
@@ -115,3 +122,37 @@ def make_train_step(
         return TrainState(state.step + 1, new_params, new_opt), metrics
 
     return init_state, train_step
+
+
+def instrument_train_step(step_fn, *, tokens_per_step: float | None = None,
+                          metric_keys=("loss", "grad_norm",
+                                       "nonfinite_skips")):
+    """Wrap a ``train_step`` so each call emits one obs ``train_step`` event
+    when a tracer is scoped — and is the identity call (same objects
+    returned, no added work beyond one contextvar read) when none is.
+
+    The wrapper adds no device synchronise: it measures the host time of
+    the call (a step of the port already waits once, for the gradient norm,
+    so this is close to the step's time) and records the selected metrics
+    as the step's 0-d tensors, resolved to floats when the tracer
+    serializes, off the hot path. ``tokens_per_step`` (e.g. batch * n_res)
+    rides along for throughput aggregation."""
+    from repro_torch.obs.trace import current_tracer, monotonic_ns
+
+    step_counter = [0]
+
+    def instrumented(state, batch, rng=None):
+        tr = current_tracer()
+        if tr is None:
+            return step_fn(state, batch, rng)
+        t0 = monotonic_ns()
+        state, metrics = step_fn(state, batch, rng)
+        dur = monotonic_ns() - t0
+        step_counter[0] += 1
+        tr.emit("train_step", "train_step", step=step_counter[0],
+                dur_ns=dur, tokens=tokens_per_step,
+                metrics={k: metrics[k] for k in metric_keys
+                         if k in metrics})
+        return state, metrics
+
+    return instrumented

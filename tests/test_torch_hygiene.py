@@ -37,7 +37,8 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "torch_profile_serve.py",
                                          ROOT / "scripts" / "torch_fold_memory.py",
-                                         ROOT / "scripts" / "torch_fold_latency.py"]
+                                         ROOT / "scripts" / "torch_fold_latency.py",
+                                         ROOT / "scripts" / "torch_train_alphafold.py"]
 
 
 def _imported_modules(path: Path):
@@ -78,6 +79,21 @@ def test_fastfold_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FastFold(SMOKE)
     assert FastFold(SMOKE, device="cpu").device == torch.device("cpu")
+
+
+def test_trainer_defaults_to_the_card(monkeypatch, tmp_path):
+    """``scripts/torch_train_alphafold.py`` runs on the card unless given
+    ``--device cpu``: without one it raises before a step or a checkpoint."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_alphafold", ROOT / "scripts" / "torch_train_alphafold.py")
+    trainer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trainer)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
     tree = {"w": np.ones((2, 3), np.float32)}
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy(tree)
