@@ -12,6 +12,25 @@ Phases, each printing JSON lines:
                default plan and under attention-oracle
                (``KernelPolicy(attention="oracle")``: every attention site
                materializes its scores and runs the fused softmax);
+     dap nccl1 — the whole model under Dynamic Axial Parallelism on a
+               world-size-1 NCCL group (its collectives and the Duality
+               Async trigger/block pair): the FULL fold and one FULL training
+               step equal to the same model with ``LocalDist`` to the bit;
+     dap 2  — two processes sharing the card through a gloo group run the
+               whole model under DAP at FULL widths cut to 16 blocks
+               (``DAP2_BLOCKS``; each rank's kernels at the shard shapes
+               recorded on one block first): the fold (n_recycle = 3) held
+               against the single-process port at the same depth at 2e-2
+               (it comes out equal to the bit), the step's loss and gradient
+               norm at 1e-2, an fp32 point (2 blocks, n_recycle = 3) at
+               1e-3 for the fold and every gradient, the ranks' states equal
+               to the bit, each rank's launches, peak memory and bytes per
+               collective (as ``block_collective_bytes`` models them). Two
+               ranks on one card measure no DAP speed;
+     tp 2   — the same two ranks then run the Evoformer stack's forward
+               under the TP baseline, FULL widths cut to 2 blocks
+               (``TP_BLOCKS``), against the local stack (bf16 at 2e-2,
+               fp32 at 1e-3), 6 all-reduces a block;
   4. kernels — each kernel against its plain PyTorch version on the card, at
                every surveyed call and at edge cases, in fp32 and bf16, with
                the stated tolerances (and, for K4 to K7, controls the
@@ -80,12 +99,14 @@ Phases, each printing JSON lines:
                on a slice of rows.
 The survey (3) also records every kernel call of one training step cut to
 one block, under both plans, so phase 4 checks the training kernels at the
-training shapes. The last two lines are the card's ``nvidia-smi`` line and
+training shapes, and the DAP and TP phases' calls at their shapes.
+The last two lines are the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that. It needs the repository's ``src/`` beside it and a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -370,25 +391,16 @@ def _layout(ts):
     return tuple((numel, tuple(views)) for numel, views in groups.values())
 
 
-def survey_phase(torch, tree, batches):
-    """Every distinct call the main paths make to a kernel wrapper, recorded
-    by wrapping the wrappers ``ops`` calls: one FULL-width forward for each
-    request shape, cut to one Evoformer block (every block hands its kernels
-    the same shapes) and no recycling (every pass hands them the same
-    shapes), then one training step of the same cut at the training shape
-    (r = 256, s = 128) with dropout; each under the default plan and under
-    attention-oracle. Returns {kernel: {signature: request name}}; these
-    launches happen before the main paths' counts are set to 0."""
-    from repro_torch.configs import FULL
-    from repro_torch.exec import FastFold
+@contextlib.contextmanager
+def recording_calls(seen: dict, where: list):
+    """Within the scope, each distinct call ``ops`` makes to a kernel
+    wrapper (shape, dtype, memory layout) is noted in ``seen[kernel]``
+    under ``where[0]``; yields {gate layout: whether ``ops._bsm_fwd``'s
+    inputs arrived contiguous}."""
     from repro_torch.kernels import ops
-    from repro_torch.train import make_train_step
-    from repro_torch.weights import params_from_numpy
 
-    params = params_from_numpy(dict(tree, evoformer=_slice_tree(
-        tree["evoformer"], 1)), device="cuda")
-    seen = {k: {} for k in TOL}
-    where = [None]
+    for k in TOL:
+        seen.setdefault(k, {})
     names = ("layer_norm_cuda", "bias_sigmoid_mul_cuda",
              "flash_attention_cuda", "fused_triangle_cuda", "fused_opm_cuda",
              "flash_attention_bwd_cuda", "bias_dropout_add_cuda",
@@ -460,8 +472,35 @@ def survey_phase(torch, tree, batches):
     for n, fn in zip(names, (ln, bsm, attn, tri, opm, attn_bwd, bda, softmax)):
         setattr(ops, n, fn)
     ops._bsm_fwd = gate_fwd
-    metrics = {}
     try:
+        yield gate_layouts
+    finally:
+        for n, fn in zip(names, orig):
+            setattr(ops, n, fn)
+        ops._bsm_fwd = bsm_fwd
+
+
+def survey_phase(torch, tree, batches):
+    """Every distinct call the main paths make to a kernel, recorded by
+    wrapping the wrappers ``ops`` calls (``recording_calls``): one
+    FULL-width forward for each request shape, cut to one Evoformer block
+    (every block hands its kernels the same shapes) and no recycling (every
+    pass hands them the same shapes), then one training step of the same
+    cut at the training shape (r = 256, s = 128) with dropout; each under
+    the default plan and under attention-oracle. Returns {kernel:
+    {signature: request name}}; these launches happen before the main
+    paths' counts are set to 0."""
+    from repro_torch.configs import FULL
+    from repro_torch.exec import FastFold
+    from repro_torch.train import make_train_step
+    from repro_torch.weights import params_from_numpy
+
+    params = params_from_numpy(dict(tree, evoformer=_slice_tree(
+        tree["evoformer"], 1)), device="cuda")
+    seen = {}
+    where = [None]
+    metrics = {}
+    with recording_calls(seen, where) as gate_layouts:
         for plan in ("default", "attention-oracle"):
             ff = FastFold(_cut(FULL, 1), plan=plan_of(plan))
             done = set()
@@ -479,10 +518,6 @@ def survey_phase(torch, tree, batches):
             metrics[plan] = {"loss": float(m["loss"]),
                              "grad_norm": float(m["grad_norm"])}
         torch.cuda.synchronize()
-    finally:
-        for n, fn in zip(names, orig):
-            setattr(ops, n, fn)
-        ops._bsm_fwd = bsm_fwd
     emit({"phase": "survey", "cut": {"n_blocks": 1, "n_recycle": 0},
           "train_step": metrics,
           "distinct_calls": {k: len(v) for k, v in seen.items()},
@@ -493,8 +528,8 @@ def survey_phase(torch, tree, batches):
 
 def kernel_phase(torch, timer, seen):
     """Each kernel against its plain version at every signature the survey
-    found, in fp32 and bf16 (timed in the main path's own dtype), then at
-    the edge cases."""
+    and the DAP and TP phases found, in fp32 and bf16 (timed in the main
+    path's own dtype), then at the edge cases."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (bwd_groups,
@@ -2261,6 +2296,470 @@ def long_kernel_phase(torch, timer, chunk: int):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Dynamic Axial Parallelism and the TP baseline
+# ---------------------------------------------------------------------------
+
+# The fold and step under DAP against the single-process port on the card,
+# bf16: each fold output within DAP_FOLD_TOL * max(1, max|port|), loss and
+# gradient norm within DAP_STEP_RTOL relative. A rank's kernels give its
+# shard of rows the whole call's rows to the bit, and the forward's
+# collectives only move bytes, so the fold and the loss come out equal to
+# the bit (a fold this deep at random weights moves by 0.1-0.4 of its
+# coordinates for one differing rounding); the gradient norm moves with
+# the order of the ranks' partial sums. The fp32 point (FULL widths,
+# DAP_FP32_BLOCKS blocks, n_recycle = 3, no dropout): the fold and every
+# gradient within E2E_TOL / GRAD_TOL. Two ranks share one card through
+# host memory, so their phases run DAP2_BLOCKS and TP_BLOCKS of the 48
+# blocks (depth cut, widths whole). TP's row-parallel products sum two
+# rounded halves, so its bf16 stack differs from the local one by rounding
+# that grows with depth (1.2-1.4e-2 at 2 blocks, 3.0-3.4e-2 at 16):
+# TP_BLOCKS keeps it a check that DAP_FOLD_TOL can hold.
+DAP_RANKS = 2
+DAP2_BLOCKS = 16
+TP_BLOCKS = 2
+DAP_FOLD_TOL = 2e-2
+DAP_STEP_RTOL = 1e-2
+DAP_FP32_BLOCKS = 2
+# Every spawned rank must finish within this, or the phase fails.
+DAP_TIMEOUT_S = 420
+# The fold outputs held together.
+FOLD_KEYS = ("coords", "msa_logits", "distogram_logits")
+
+
+def _depth(cfg, n_blocks: int):
+    """``cfg`` with ``n_blocks`` Evoformer blocks, recycling kept."""
+    return dataclasses.replace(cfg, evoformer=dataclasses.replace(
+        cfg.evoformer, n_blocks=n_blocks))
+
+
+def _gspmd_plan():
+    """The default plan with the whole model under DAP on the default
+    process group."""
+    return plan_of("default").with_parallel(backend="gspmd")
+
+
+def _digest(torch, tree) -> str:
+    """One hash of every leaf's bytes, in tree order."""
+    import hashlib
+
+    from repro_torch.layers.params import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().reshape(-1).cpu().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _fold_and_step(torch, ff, params, batch, tbatch):
+    """One fold of ``batch`` and one training step on ``tbatch`` (dropout
+    from a generator seeded SEED on the card), each with the launch and
+    collective counts set to 0 just before it and read just after, its
+    seconds and its peak memory."""
+    from repro_torch.core import dist as D
+    from repro_torch.kernels import _build
+    from repro_torch.train import make_train_step
+
+    rec = {}
+    for what in ("fold", "step"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        D.reset_collectives()
+        t0 = time.perf_counter()
+        if what == "fold":
+            out = ff.forward(params, batch)
+            rec["out"] = {k: out[k] for k in FOLD_KEYS}
+            del out
+        else:
+            init, step = make_train_step(ff.loss_fn)
+            state, m = step(init(params), tbatch,
+                            torch.Generator(device="cuda").manual_seed(SEED))
+            rec["state"] = state
+            rec["loss"], rec["grad_norm"] = (float(m["loss"]),
+                                             float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        rec[what] = {"seconds": time.perf_counter() - t0,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": {k: _build.LAUNCHES[k] for k in TOL},
+                     "collectives": D.collectives()}
+    return rec
+
+
+def dap_nccl1_phase(torch, tree, batch):
+    """The whole model under DAP on a world-size-1 NCCL group on the card
+    (real NCCL collectives, the trigger/block pair), against the same model
+    with ``LocalDist``: the FULL fold (48 blocks, n_recycle = 3, r = 256,
+    s = 128, bf16, default plan) and one FULL training step. The products
+    and kernels are the same, so the fold's outputs, the loss, the gradient
+    norm and every parameter and optimizer moment after the step must be
+    equal to the bit. Returns the launches."""
+    import tempfile
+
+    from repro_torch.configs import FULL
+    from repro_torch.core import dist as D
+    from repro_torch.exec import FastFold
+    from repro_torch.weights import params_from_numpy
+
+    params = params_from_numpy(tree, device="cuda")
+    tbatch = train_batches(1)[0]
+    t0 = time.perf_counter()
+    local = _fold_and_step(torch, FastFold(FULL, plan=plan_of("default")),
+                           params, batch, tbatch)
+    with tempfile.TemporaryDirectory() as tmp:
+        D.form_group(0, 1, os.path.join(tmp, "store"), backend="nccl",
+                     device="cuda")
+        try:
+            dap = _fold_and_step(torch, FastFold(FULL, plan=_gspmd_plan()),
+                                 params, batch, tbatch)
+        finally:
+            D.tdist.destroy_process_group()
+    equal = {k: bool(torch.equal(dap["out"][k], local["out"][k]))
+             for k in FOLD_KEYS}
+    equal["loss"] = dap["loss"] == local["loss"]
+    equal["grad_norm"] = dap["grad_norm"] == local["grad_norm"]
+    for part in ("params", "opt_state"):
+        equal[part] = (_digest(torch, getattr(dap["state"], part))
+                       == _digest(torch, getattr(local["state"], part)))
+    exp = {"fold": expected_launches(FULL, FULL.n_recycle + 1),
+           "step": expected_train_launches(FULL)}
+    row = {"phase": "dap nccl1", "backend": "nccl", "world_size": 1,
+           "n_res": 256, "n_seq": 128, "n_blocks": FULL.evoformer.n_blocks,
+           "n_recycle": FULL.n_recycle, "dtype": "bfloat16",
+           "seconds": time.perf_counter() - t0,
+           "equal_to_the_bit": equal, "loss": dap["loss"],
+           "grad_norm": dap["grad_norm"]}
+    for what in ("fold", "step"):
+        row[what] = {"dap": dap[what], "local": {
+            k: local[what][k] for k in ("seconds", "peak_memory_bytes")}}
+    emit(row)
+    if not all(equal.values()):
+        fail(f"dap nccl1: not equal to the LocalDist run to the bit: {equal}")
+    for what in ("fold", "step"):
+        if dap[what]["launches"] != exp[what]:
+            fail(f"dap nccl1 {what}: launches {dap[what]['launches']} != "
+                 f"expected {exp[what]}")
+    return {f"dap nccl1 {w}": dap[w]["launches"] for w in ("fold", "step")}
+
+
+def _dap_inputs_path(torch, tree, tmp: str) -> str:
+    import pickle
+
+    path = os.path.join(tmp, "tree.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(tree, f, protocol=5)
+    return path
+
+
+def _rank_setup(torch, rank, world, init_file, tree_path):
+    """A spawned rank: the repository's ``src`` importable, a gloo group on
+    the card (two ranks share it: NCCL refuses two ranks on one device),
+    and the weight tree."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import dist as D
+
+    D.form_group(rank, world, init_file, backend="gloo", device="cuda",
+                 timeout_s=DAP_TIMEOUT_S)
+    with open(tree_path, "rb") as f:
+        return pickle.load(f)
+
+
+def _two_rank(rank, world, init_file, tree_path, batch, tbatch):
+    """One rank of the two-rank phases. DAP: the shard shapes' kernel calls
+    (one block, recorded), the fold and step under DAP at DAP2_BLOCKS, and
+    the fp32 point against this card's LocalDist run. Then TP on the same
+    group (``_tp_work``)."""
+    import torch
+
+    tree = _rank_setup(torch, rank, world, init_file, tree_path)
+    from repro_torch.configs import FULL
+    from repro_torch.core import dist as D
+    from repro_torch.exec import FastFold
+    from repro_torch.layers.params import tree_leaves, tree_map
+    from repro_torch.train import make_train_step
+    from repro_torch.weights import params_from_numpy
+
+    out = {"rank": rank, "device": str(torch.cuda.current_device())}
+    seen, where = {}, [f"dap{world} r256_s128"]
+    one = params_from_numpy(dict(tree, evoformer=_slice_tree(
+        tree["evoformer"], 1)), device="cuda")
+    with recording_calls(seen, where):
+        ff1 = FastFold(_cut(FULL, 1), plan=_gspmd_plan())
+        ff1.forward(one, batch)
+        where[0] = f"dap{world} train r256_s128"
+        init, step = make_train_step(ff1.loss_fn)
+        step(init(one), tbatch,
+             torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+    del one, ff1
+    out["seen"] = seen
+
+    params = params_from_numpy(dict(tree, evoformer=_slice_tree(
+        tree["evoformer"], DAP2_BLOCKS)), device="cuda")
+    rec = _fold_and_step(torch, FastFold(_depth(FULL, DAP2_BLOCKS),
+                                         plan=_gspmd_plan()),
+                         params, batch, tbatch)
+    out["fold"], out["step"] = rec["fold"], rec["step"]
+    out["loss"], out["grad_norm"] = rec["loss"], rec["grad_norm"]
+    out["digest"] = {part: _digest(torch, getattr(rec["state"], part))
+                     for part in ("params", "opt_state")}
+    if rank == 0:
+        out["out"] = {k: v.float().cpu() for k, v in rec["out"].items()}
+    del rec, params
+
+    # The fp32 point: FULL widths, two blocks, recycling, no dropout.
+    cut = _depth(FULL, DAP_FP32_BLOCKS)
+    p32 = params_from_numpy(dict(tree, evoformer=_slice_tree(
+        tree["evoformer"], DAP_FP32_BLOCKS)), device="cuda")
+    res = {}
+    for name, plan in (("dap", _gspmd_plan()), ("local", plan_of("default"))):
+        ff = FastFold(cut, dtype=torch.float32, plan=plan)
+        fold = ff.forward(p32, batch)
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p32)
+        loss, _ = ff.loss_fn(live, tbatch)
+        grads = torch.autograd.grad(loss, tree_leaves(live),
+                                    allow_unused=True)
+        res[name] = ({k: fold[k].float() for k in FOLD_KEYS},
+                     float(loss.detach()),
+                     [torch.zeros_like(p) if g is None else g
+                      for g, p in zip(grads, tree_leaves(live))])
+    (fd, ld, gd), (fl, ll, gl) = res["dap"], res["local"]
+    out["fp32"] = {
+        "fold_rel_err": {k: rel_err(fd[k], fl[k])[1] for k in FOLD_KEYS},
+        "loss": [ld, ll],
+        "grad_worst_rel_err": max(rel_err(a, b)[1] for a, b in zip(gd, gl)),
+        "n_grads": len(gl)}
+    del p32, res, gd, gl, fold, live, grads, loss, ff
+    out["tp"] = _tp_work(torch, tree, rank, world)
+    D.reset_collectives()
+    return out
+
+
+def dap2_phase(torch, tree, batch):
+    """Two ranks, one process each, sharing the one card through a gloo
+    group (NCCL refuses two ranks on one device), run the whole model under
+    DAP: the fold (DAP2_BLOCKS blocks at FULL widths, n_recycle = 3,
+    r = 256, s = 128, bf16, default plan) and one training step, held
+    against the single-process port at the same depth (run here first),
+    and the fp32 point; then the TP stack (``tp2_phase`` checks it). Each
+    rank's launches, peak memory and bytes sent per collective kind beside
+    the one-process run's. Its times are what the phase took, not DAP's
+    speed: two ranks time-share one card through host memory. Returns the
+    kernel calls at the shard shapes, the launches and the ranks'
+    results."""
+    import tempfile
+
+    from repro_torch.configs import FULL
+    from repro_torch.core import dist as D
+    from repro_torch.core.dap import block_collective_bytes
+    from repro_torch.exec import FastFold
+    from repro_torch.weights import params_from_numpy
+
+    t0 = time.perf_counter()
+    cfg = _depth(FULL, DAP2_BLOCKS)
+    tbatch = train_batches(1)[0]
+    local = _fold_and_step(torch, FastFold(cfg, plan=plan_of("default")),
+                           params_from_numpy(dict(tree, evoformer=_slice_tree(
+                               tree["evoformer"], DAP2_BLOCKS)),
+                               device="cuda"), batch, tbatch)
+    del local["state"]
+    local["out"] = {k: v.float().cpu() for k, v in local["out"].items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _dap_inputs_path(torch, tree, tmp)
+        try:
+            ranks = D.run_ranks(_two_rank, DAP_RANKS, path, batch, tbatch,
+                                timeout_s=DAP_TIMEOUT_S)
+        except RuntimeError as e:
+            fail(f"dap {DAP_RANKS}: {e}")
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    fold_err = {k: rel_err(r0["out"][k], local["out"][k])[1]
+                for k in FOLD_KEYS}
+    fold_equal = {k: bool(torch.equal(r0["out"][k], local["out"][k]))
+                  for k in FOLD_KEYS}
+    step_rel = {k: abs(r0[k] - local[k]) / max(abs(local[k]), 1e-30)
+                for k in ("loss", "grad_norm")}
+    same = {part: len({r["digest"][part] for r in ranks}) == 1
+            for part in ("params", "opt_state")}
+    same["loss"] = len({r["loss"] for r in ranks}) == 1
+    model = block_collective_bytes(FULL.evoformer, batch=1, n_seq=128,
+                                   n_res=256, n=DAP_RANKS)
+    passes = cfg.n_recycle + 1
+    per_block = {k: {"calls": r0["fold"]["collectives"][k]["forward"]["calls"]
+                     / (passes * DAP2_BLOCKS),
+                     "bytes": r0["fold"]["collectives"][k]["forward"]["bytes"]
+                     / (passes * DAP2_BLOCKS)}
+                 for k in model}
+    exp = {"fold": expected_launches(cfg, passes),
+           "step": expected_train_launches(cfg)}
+    row = {"phase": f"dap {DAP_RANKS}", "backend": "gloo on one card",
+           "world_size": DAP_RANKS, "n_res": 256, "n_seq": 128,
+           "n_blocks": DAP2_BLOCKS, "n_recycle": cfg.n_recycle,
+           "dtype": "bfloat16", "seconds": seconds,
+           "fold_rel_err_vs_single_process": fold_err, "tol": DAP_FOLD_TOL,
+           "fold_equal_to_the_bit": fold_equal,
+           "step_rel_err_vs_single_process": step_rel,
+           "step_rtol": DAP_STEP_RTOL, "ranks_equal": same,
+           "loss": r0["loss"], "grad_norm": r0["grad_norm"],
+           "fold_collectives_per_block_forward": per_block,
+           "model_per_block_forward": model,
+           "fp32": [r["fp32"] for r in ranks], "fp32_tol": E2E_TOL,
+           "single_process": {w: {k: local[w][k] for k in
+                                  ("seconds", "peak_memory_bytes")}
+                              for w in ("fold", "step")},
+           "ranks": [{w: r[w] for w in ("rank", "fold", "step")}
+                     for r in ranks]}
+    emit(row)
+    checks = {
+        "fold": max(fold_err.values()) <= DAP_FOLD_TOL,
+        "step": max(step_rel.values()) <= DAP_STEP_RTOL,
+        "ranks equal": all(same.values()),
+        "collectives as modelled": per_block == model,
+        "fp32": all(max(r["fp32"]["fold_rel_err"].values()) <= E2E_TOL
+                    and r["fp32"]["grad_worst_rel_err"] <= GRAD_TOL
+                    for r in ranks)}
+    for r in ranks:
+        for w in ("fold", "step"):
+            checks[f"rank {r['rank']} {w} launches"] = (
+                r[w]["launches"] == exp[w])
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"dap {DAP_RANKS}: {bad}")
+    launches = {f"dap {DAP_RANKS} {w}": ranks[0][w]["launches"]
+                for w in ("fold", "step")}
+    return r0["seen"], launches, ranks
+
+
+def _tp_inputs(torch, dtype):
+    """The TP phase's whole inputs, from a seed: msa (1, 128, 256, 256),
+    pair (1, 256, 256, 128), an MSA mask dropping ~10%, the last 20
+    residues padding."""
+    from repro_torch.configs import FULL
+
+    evo = FULL.evoformer
+    b, s, r = 1, 128, 256
+    gen = torch.Generator().manual_seed(SEED + 9)
+    msa = torch.randn((b, s, r, evo.d_msa), generator=gen).to(dtype)
+    pair = torch.randn((b, r, r, evo.d_pair), generator=gen).to(dtype)
+    msa_mask = (torch.rand((b, s, r), generator=gen) < 0.9).float()
+    seq_mask = torch.ones((b, r))
+    seq_mask[:, -20:] = 0.0
+    pair_mask = seq_mask[:, :, None] * seq_mask[:, None, :]
+    return (msa, pair, msa_mask, seq_mask, pair_mask)
+
+
+def _tp_work(torch, tree, rank, world):
+    """A rank's TP work: the Evoformer stack's forward under TP on the
+    rank's gloo group at TP_BLOCKS blocks, in bf16 (its kernel calls
+    recorded on one block first) and in fp32."""
+    from repro_torch.configs import FULL
+    from repro_torch.core import dist as D
+    from repro_torch.core.tp import tp_evoformer_stack
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.kernels import _build
+    from repro_torch.weights import params_from_numpy
+
+    params = params_from_numpy({"evoformer": _slice_tree(
+        tree["evoformer"], TP_BLOCKS)}, device="cuda")["evoformer"]
+    xs = [t.to("cuda") for t in _tp_inputs(torch, torch.bfloat16)]
+    fn = tp_evoformer_stack(None, dataclasses.replace(
+        FULL.evoformer, n_blocks=TP_BLOCKS), remat=False)
+    seen, where = {}, [f"tp{world} r256_s128"]
+    with use_plan(plan_of("default")), torch.inference_mode():
+        with recording_calls(seen, where):
+            fn(params[:1], *xs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        D.reset_collectives()
+        t0 = time.perf_counter()
+        msa, pair = fn(params, *xs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = {"rank": rank, "seconds": secs, "seen": seen,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {k: _build.LAUNCHES[k] for k in TOL},
+               "collectives": D.collectives()}
+        f32 = params_from_numpy({"evoformer": _slice_tree(
+            tree["evoformer"], TP_BLOCKS)}, device="cuda")["evoformer"]
+        x32 = [t.to("cuda") for t in _tp_inputs(torch, torch.float32)]
+        m32, z32 = fn(f32, *x32)
+    if rank == 0:
+        out["msa"], out["pair"] = msa.float().cpu(), pair.float().cpu()
+        out["fp32"] = (m32.cpu(), z32.cpu())
+    return out
+
+
+def tp2_phase(torch, tree, ranks):
+    """The two gloo ranks of ``dap2_phase`` ran the Evoformer stack's
+    forward (FULL widths, TP_BLOCKS blocks, r = 256, s = 128, default plan)
+    under TP, with K1, K2, K4 (H/2 heads), K7 and K8 on its path and 6
+    all-reduces a block. TP materialises its attention scores, so it is
+    held against the local stack under attention-oracle (the same
+    attention): bf16 within DAP_FOLD_TOL, fp32 within E2E_TOL."""
+    from repro_torch.configs import FULL
+    from repro_torch.core import dist as D
+    from repro_torch.core.evoformer import evoformer_stack
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.weights import params_from_numpy
+
+    evo = dataclasses.replace(FULL.evoformer, n_blocks=TP_BLOCKS)
+    ranks = [r["tp"] for r in ranks]
+    want = {}
+    with torch.inference_mode(), use_plan(plan_of("attention-oracle")):
+        for dtype in (torch.bfloat16, torch.float32):
+            params = params_from_numpy({"evoformer": _slice_tree(
+                tree["evoformer"], TP_BLOCKS)}, device="cuda")["evoformer"]
+            m, z = evoformer_stack(
+                params, *(t.to("cuda") for t in _tp_inputs(torch, dtype)),
+                cfg=evo, dist=D.LocalDist())
+            want[dtype] = (m.float().cpu(), z.float().cpu())
+    r0 = ranks[0]
+    err = {k: rel_err(r0[k], want[torch.bfloat16][i])[1]
+           for i, k in enumerate(("msa", "pair"))}
+    err32 = {k: rel_err(r0["fp32"][i], want[torch.float32][i])[1]
+             for i, k in enumerate(("msa", "pair"))}
+    ar = r0["collectives"]["all_reduce"]["forward"]["calls"]
+    row = {"phase": f"tp {DAP_RANKS}", "world_size": DAP_RANKS,
+           "n_res": 256, "n_seq": 128, "n_blocks": TP_BLOCKS,
+           "dtype": "bfloat16",
+           "rel_err_vs_local_stack": err, "tol": DAP_FOLD_TOL,
+           "fp32_rel_err": err32, "fp32_tol": E2E_TOL,
+           "all_reduces_per_block_forward": ar / TP_BLOCKS,
+           "ranks": [{k: rr[k] for k in ("rank", "seconds",
+                                         "peak_memory_bytes", "launches",
+                                         "collectives")} for rr in ranks]}
+    emit(row)
+    on_path = ("layer_norm", "bias_sigmoid_mul", "fused_softmax",
+               "triangle_mult", "outer_product_mean")
+    if (max(err.values()) > DAP_FOLD_TOL
+            or max(err32.values()) > E2E_TOL or ar != 6 * TP_BLOCKS
+            or any(rr["launches"][k] == 0 for rr in ranks for k in on_path)):
+        fail(f"tp {DAP_RANKS}: {err} (tol {DAP_FOLD_TOL}), fp32 {err32}, "
+             f"{ar} all-reduces, launches {r0['launches']}")
+    return r0["seen"], {f"tp {DAP_RANKS}": r0["launches"]}
+
+
+def dap_phases(torch, tree, batches, seen):
+    """The DAP and TP phases; the kernel calls at their shard shapes join
+    ``seen`` (checked by ``kernel_phase``). Returns their launches."""
+    t0 = time.perf_counter()
+    launches = dap_nccl1_phase(torch, tree, batches[0])
+    dap_seen, dap_launches, ranks = dap2_phase(torch, tree, batches[0])
+    tp_seen, tp_launches = tp2_phase(torch, tree, ranks)
+    for shard_seen, l in ((dap_seen, dap_launches), (tp_seen, tp_launches)):
+        launches.update(l)
+        for k, calls in shard_seen.items():
+            for sig, where in calls.items():
+                seen.setdefault(k, {}).setdefault(sig, where)
+    emit({"phase": "dap phases", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; run "
@@ -2299,6 +2798,7 @@ def main() -> int:
 
     tree, batches = init_phase(torch)
     seen = survey_phase(torch, tree, batches)
+    launches = dap_phases(torch, tree, batches, seen)
     timer = Timer(torch)
     checks = kernel_phase(torch, timer, seen)
     emit({"phase": "kernel_checks", "summary": {
@@ -2310,7 +2810,6 @@ def main() -> int:
             "tol": TOL[k]} for k in TOL}})
 
     del timer
-    launches = {}
     launches["serve"], latencies = serve_phase(torch, tree, batches)
     launches["serve attention-oracle"], _ = serve_phase(
         torch, tree, batches, "attention-oracle", baseline=latencies)

@@ -13,8 +13,15 @@ device's (``device.hbm_budget_bytes``: the card's memory less what is
 allocated when the forward starts); the planner gets it less what the
 forward keeps live outside the Evoformer block
 (``memory.autochunk.outside_block_bytes``). Knobs set by hand and
-``auto_chunk=False`` opt out. A plan asking for a backend other than
-``"local"`` raises. The recycling loop is a Python loop.
+``auto_chunk=False`` opt out. The recycling loop is a Python loop.
+
+Dynamic Axial Parallelism (the reference's ``GspmdDist`` role): under a
+plan whose ``ParallelPolicy`` is ``"gspmd"`` (``core.dist.WholeModelDist``
+on a process group) the embedding, structure module, heads and loss run on
+every rank on the whole batch, and only the Evoformer stack is sharded
+(``core.dap.whole_model_evoformer``); AutoChunk plans each rank's shard. A
+``"shard_map"`` backend runs the stack on shards its caller made
+(``core.dap.dap_evoformer_stack``), so a whole model under it raises.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.alphafold import AlphaFoldConfig, EvoformerConfig
+from repro_torch.core.dap import whole_model_evoformer
+from repro_torch.core.dist import LocalDist
 from repro_torch.core.evoformer import (DROPOUT_SITES, evoformer_stack,
                                         init_evoformer_stack)
 from repro_torch.core.losses import alphafold_loss
@@ -107,11 +116,30 @@ def embed_recycle(params, msa, pair, prev, cfg: AlphaFoldConfig):
     return msa, pair
 
 
+def _evoformer(params, msa, pair, msa_mask, seq_mask, pair_mask, *, cfg,
+               keeps, remat, dist):
+    if dist.whole_model:
+        return whole_model_evoformer(params, msa, pair, msa_mask, seq_mask,
+                                     pair_mask, cfg=cfg, dist=dist,
+                                     keeps=keeps, remat=remat)
+    if not isinstance(dist, LocalDist):
+        raise ValueError(
+            f"{type(dist).__name__} runs the Evoformer on shards its caller "
+            "made (core.dap.dap_evoformer_stack); the whole model under DAP "
+            "is ParallelPolicy('gspmd')")
+    return evoformer_stack(params, msa, pair, msa_mask, seq_mask, pair_mask,
+                           cfg=cfg, keeps=keeps, remat=remat, dist=dist)
+
+
 def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig, *,
-                        keeps: list[dict] | None = None, remat: bool = False):
+                        keeps: list[dict] | None = None, remat: bool = False,
+                        dist=None):
     """One recycling iteration: embed -> Evoformer -> structure + heads.
     ``keeps``: the Evoformer's dropout masks, or None; ``remat``: per-block
-    activation checkpointing."""
+    activation checkpointing; ``dist``: the backend (None: the current
+    plan's)."""
+    if dist is None:
+        dist = current_plan().parallel.make_dist()
     dt = cfg.compute_dtype
     msa, pair = embed_inputs(params, batch, cfg)
     msa, pair = embed_recycle(params, msa, pair, prev, cfg)
@@ -120,9 +148,9 @@ def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig, *,
 
     seq_mask = batch["seq_mask"]
     pair_mask = seq_mask[:, :, None] * seq_mask[:, None, :]
-    msa, pair = evoformer_stack(params["evoformer"], msa, pair,
-                                batch["msa_mask"], seq_mask, pair_mask,
-                                cfg=cfg.evoformer, keeps=keeps, remat=remat)
+    msa, pair = _evoformer(params["evoformer"], msa, pair, batch["msa_mask"],
+                           seq_mask, pair_mask, cfg=cfg.evoformer,
+                           keeps=keeps, remat=remat, dist=dist)
 
     single = dense(params["single_proj"], msa[:, 0].float())
     coords, frames, traj = structure_module(params["structure"], single,
@@ -147,7 +175,7 @@ def planned_evoformer(cfg: AlphaFoldConfig, batch_shape, *, device,
     it (None with ``auto_chunk`` off), and the budget the planner got: the
     fold's budget less ``outside_block_bytes``."""
     plan = current_plan()
-    dist = plan.parallel.make_dist()      # raises for a backend not served
+    dist = plan.parallel.make_dist()
     evo = plan.memory.apply(cfg.evoformer)
     b, s, r = batch_shape
     budget = (hbm_budget if hbm_budget is not None
@@ -179,6 +207,7 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
     plan's and the device's budget)."""
     b, s, r = batch["msa"].shape
     dev = batch["msa"].device
+    dist = current_plan().parallel.make_dist()
     evo, _, _ = planned_evoformer(cfg, (b, s, r), device=dev,
                                   hbm_budget=hbm_budget)
     if evo != cfg.evoformer:
@@ -196,7 +225,8 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
 
     def recycle(prev):
         for _ in range(n_recycle):
-            out = alphafold_iteration(params, batch, prev, cfg, keeps=keeps)
+            out = alphafold_iteration(params, batch, prev, cfg, keeps=keeps,
+                                      dist=dist)
             prev = (out["msa"][:, 0].float(), out["pair"].float(),
                     out["coords"])
             # Only prev crosses into the next pass (outside_block_bytes).
@@ -207,11 +237,11 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
         keeps = None
         with torch.inference_mode():
             return alphafold_iteration(params, batch, recycle(zeros_prev()),
-                                       cfg)
+                                       cfg, dist=dist)
     with torch.no_grad():
         prev = recycle(zeros_prev())
     return alphafold_iteration(params, batch, prev, cfg, keeps=keeps,
-                               remat=remat)
+                               remat=remat, dist=dist)
 
 
 def draw_dropout_keeps(cfg: AlphaFoldConfig, batch_shape, generator,

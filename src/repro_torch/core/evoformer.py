@@ -1,10 +1,26 @@
-"""Evoformer (AlphaFold 2 trunk), single device, inference and training.
+"""Evoformer (AlphaFold 2 trunk), inference and training, on one device or
+under Dynamic Axial Parallelism.
 
-The port of the reference's ``evoformer_block`` / ``evoformer_stack`` with
-single-device semantics: collectives are the identity, ``transpose_pair`` is
-an axis swap, and the async overlap window is the identity. Every LayerNorm
-goes through the LayerNorm kernel and every attention output gate through
-the gating kernel.
+The port of the reference's ``evoformer_block`` / ``evoformer_stack``. Every
+site takes the ``dist`` backend (``core/dist.py``; None resolves the current
+plan's ``ParallelPolicy``), and the block follows the reference's sharding
+state machine (paper Fig. 6), with N the group's size:
+
+  MSA   (B, s/N, r, Hm): sharded on s for the row attention; all-to-all #1
+        moves it, and its mask, to the r shard for the column attention,
+        the transition and the outer-product-mean; all-to-all #2 swaps it
+        back, triggered right after the outer-product-mean and blocked at
+        the end of the block (the Duality-Async window, ``core/duality.py``).
+  pair  (B, r/N, r, Hz): sharded on i; the incoming update and the
+        ending-node attention run on the all-to-all-transposed pair.
+
+All-gathers materialise what crosses the shard: the (B, H, r, r) pair biases
+of the three biased attentions (across their QKV projections), the
+outer-product-mean's right projection and its mask, and each triangle
+update's gated, masked b (across its left operands). Under ``LocalDist``
+every collective is the identity, ``transpose_pair`` an axis swap and each
+window empty. Every LayerNorm goes through the LayerNorm kernel and every
+attention output gate through the gating kernel.
 
 Each of the three kernel sites takes one of two branches, chosen as the
 reference chooses them, by the current ``ExecutionPlan`` (``exec/plan.py``)
@@ -36,12 +52,16 @@ outer-product-mean. None of them changes a number.
 Training: the six residual adds that the reference drops out go through
 ``ops.bias_dropout_add`` with their keep masks (drawn by the caller, see
 ``core.alphafold.draw_dropout_keeps``, at the reduced shape of the
-reference's shared axis), and ``evoformer_stack(remat=True)`` recomputes each
+reference's shared axis; under DAP every rank draws them whole from the same
+generator and ``evoformer_stack`` takes its own shard of each), and
+``evoformer_stack(remat=True)`` recomputes each
 block in the backward (``torch.utils.checkpoint``) under the plan the forward
 ran under. ``cfg.remat_policy`` says what a block keeps: "nothing" (the
 reference's ``nothing_saveable``) only its inputs, "dots" (its
 ``dots_saveable``) also the outputs of its matrix products. Masks are never
 drawn inside a checkpointed block, so the recompute sees the same ones.
+The recompute also runs under the forward's ``dist``, and launches the block's
+collectives again in the forward's order on every rank.
 """
 from __future__ import annotations
 
@@ -52,13 +72,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     set_checkpoint_early_stop)
 
 from repro_torch.configs.alphafold import EvoformerConfig
+from repro_torch.core import duality
+from repro_torch.core.dist import LocalDist
 from repro_torch.exec.plan import current_plan, use_plan
 from repro_torch.kernels import ops
 from repro_torch.layers.attention import (AttnDims, init_attention,
                                           output_proj, project_qkv)
 from repro_torch.layers.mlp import init_transition, transition
 from repro_torch.layers.norms import init_layer_norm, layer_norm
-from repro_torch.layers.params import Params, dense, init_dense
+from repro_torch.layers.params import (Params, dense, init_dense, tree_leaves,
+                                       tree_map)
 
 NEG_INF = -1e9
 
@@ -144,33 +167,53 @@ def _residual_add(upd: torch.Tensor, residual: torch.Tensor, rate: float = 0.0,
     return ops.bias_dropout_add(upd, None, residual, rate, keep)
 
 
-def transpose_pair(x: torch.Tensor) -> torch.Tensor:
-    """(B, i, j, ...) -> (B, j, i, ...): on one device the all_to_all of the
-    reference is the identity and only the axis swap remains."""
-    return x.transpose(1, 2)
+def _resolve(dist):
+    return dist if dist is not None else current_plan().parallel.make_dist()
+
+
+def transpose_pair(x: torch.Tensor, dist=None) -> torch.Tensor:
+    """(B, i/N, j, ...) -> (B, j/N, i, ...): the all-to-all moves the shard
+    from i to j (split 2, concatenate 1), the local swap finishes the
+    transpose. On one device only the swap remains."""
+    return _resolve(dist).all_to_all(x, split_axis=2,
+                                     concat_axis=1).transpose(1, 2)
 
 
 def _gated_attention(p_attn: Params, x_n: torch.Tensor,
-                     bias: torch.Tensor | None, key_mask: torch.Tensor,
+                     bias, key_mask: torch.Tensor,
                      dims: AttnDims, chunk: int = 0,
-                     kv_tile: int = 0) -> torch.Tensor:
-    """Group attention, 5D. x_n (B, G, S, d); bias (B, H, S, S) shared
-    across G, or None; key_mask (B, G, S) in {0, 1}. The fused branch where
-    the plan and the kernel's envelope allow it (``kv_tile`` goes down to
-    ``ops.fused_attention``), else the scores-materialized branch.
+                     kv_tile: int = 0, dist=None) -> torch.Tensor:
+    """Group attention, 5D. x_n (B, G, S, d), G the groups in hand; bias
+    (B, H, S, S) shared across G, a ``duality.trigger`` handle of its
+    gather (blocked after the first QKV projection, the window's compute),
+    or None; key_mask (B, G, S) in {0, 1}. The fused branch where the plan
+    and the kernel's envelope allow it (through ``dist.sharded_attention``;
+    ``kv_tile`` goes down to ``ops.fused_attention``), else the
+    scores-materialized branch.
 
     ``chunk`` > 0: the paper's §V.C chunking, as the reference runs it: the
     G groups in sequential chunks of ``chunk`` (projections, attention and
     output projection of one chunk at a time), written into one output; a
     chunk that does not divide G runs whole."""
+    dist = _resolve(dist)
+    held = [bias]
+
+    def bias_now():
+        if held[0] is not None and not isinstance(held[0], torch.Tensor):
+            held[0] = duality.block(held[0])
+        return held[0]
+
     def attend(x_c, mask_c):
-        q, k, v = project_qkv(p_attn, x_c, dims, compute_dtype=x_c.dtype)
+        q, k, v = project_qkv(p_attn, duality.mark(x_c, "qkv"), dims,
+                              compute_dtype=x_c.dtype)
+        bias = bias_now()
         scale = 1.0 / (q.shape[-1] ** 0.5)
         mask = torch.where(mask_c > 0, 0.0, NEG_INF).to(torch.float32)
-        if ops.fused_attention_supported(q.shape, kv_len=k.shape[2],
-                                         dtype=q.dtype, device=q.device):
-            ctx = ops.fused_attention(q, k, v, bias=bias, mask=mask,
-                                      scale=scale, kv_tile=kv_tile)
+        if (ops.fused_attention_supported(q.shape, kv_len=k.shape[2],
+                                          dtype=q.dtype, device=q.device)
+                and dist.sharded_attention_supported(q.shape)):
+            ctx = dist.sharded_attention(q, k, v, bias=bias, mask=mask,
+                                         scale=scale, kv_tile=kv_tile)
         else:
             scores = torch.einsum("bgihd,bgjhd->bghij", q, k)
             probs = ops.fused_softmax(scores, bias=bias, mask=mask,
@@ -192,31 +235,38 @@ def _gated_attention(p_attn: Params, x_n: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Sub-modules
+# Sub-modules (each takes the tensors in hand: the shards under DAP)
 # ---------------------------------------------------------------------------
 
-def msa_row_attention(p, msa, pair, seq_mask, cfg: EvoformerConfig):
-    """msa (B, s, r, Hm); pair (B, r, r, Hz); seq_mask (B, r)."""
+def msa_row_attention(p, msa, pair, seq_mask, cfg: EvoformerConfig,
+                      dist=None):
+    """msa (B, s/N, r, Hm) [s shard]; pair (B, r/N, r, Hz) [i shard];
+    seq_mask (B, r). The pair bias is projected from the local pair rows
+    and gathered on its row axis, across the LN and QKV projection of the
+    MSA."""
+    dist = _resolve(dist)
     b, s, r, _ = msa.shape
     dims = AttnDims(cfg.msa_heads, cfg.msa_heads, cfg.head_dim)
     z_n = layer_norm(p["ln_z"], pair)
-    bias = dense(p["bias"], z_n).permute(0, 3, 1, 2)     # (B, H, r, r)
+    bias = duality.trigger(dist, "all_gather",
+                           dense(p["bias"], z_n).permute(0, 3, 1, 2),
+                           axis=2)                        # (B, H, r, r)
     m_n = layer_norm(p["ln_m"], msa)
     key_mask = seq_mask[:, None, :].expand(b, s, r)
     return _gated_attention(p["attn"], m_n, bias, key_mask, dims,
                             chunk=cfg.inference_chunk,
-                            kv_tile=cfg.attn_kv_tile)
+                            kv_tile=cfg.attn_kv_tile, dist=dist)
 
 
-def msa_col_attention(p, msa, msa_mask, cfg: EvoformerConfig):
-    """msa (B, s, r, Hm); msa_mask (B, s, r)."""
+def msa_col_attention(p, msa, msa_mask, cfg: EvoformerConfig, dist=None):
+    """msa (B, s, r/N, Hm) [r shard]; msa_mask (B, s, r/N)."""
     dims = AttnDims(cfg.msa_heads, cfg.msa_heads, cfg.head_dim)
     m_n = layer_norm(p["ln"], msa)
-    x = m_n.transpose(1, 2)                     # (B, r, s, d)
-    key_mask = msa_mask.transpose(1, 2)         # (B, r, s)
+    x = m_n.transpose(1, 2)                     # (B, r/N, s, d)
+    key_mask = msa_mask.transpose(1, 2)         # (B, r/N, s)
     out = _gated_attention(p["attn"], x, None, key_mask, dims,
                            chunk=cfg.inference_chunk,
-                           kv_tile=cfg.attn_kv_tile)
+                           kv_tile=cfg.attn_kv_tile, dist=dist)
     return out.transpose(1, 2)
 
 
@@ -224,93 +274,118 @@ def msa_transition(p, msa):
     return transition(p["mlp"], layer_norm(p["ln"], msa))
 
 
-def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig):
-    """msa (B, s, r, Hm) -> pair update (B, r, r, Hz): the masked merged
-    projection, then the outer product, mask norm and c²→Hz projection,
-    fused where the plan and the kernel's envelope allow it (with the tile
-    ``cfg.opm_s_tile``), else materialized (whole, or in j blocks of
-    ``cfg.opm_chunk``)."""
+def outer_product_mean(p, msa, msa_mask, cfg: EvoformerConfig, dist=None):
+    """msa (B, s, r/N, Hm) [r shard] -> pair update (B, r/N, r, Hz) [i
+    shard]: the masked merged projection; the right half and the mask
+    gathered on r (the right half across the masking of the left one); then
+    the outer product, mask norm and c²→Hz projection, fused where the plan
+    and the kernel's envelope allow it (with the tile ``cfg.opm_s_tile``),
+    else materialized (whole, or in j blocks of ``cfg.opm_chunk``)."""
+    dist = _resolve(dist)
     c = cfg.opm_dim
     m_n = layer_norm(p["ln"], msa)
-    ab = dense(p["proj"], m_n)                   # merged GEMM (B, s, r, 2c)
+    ab = dense(p["proj"], m_n)                   # merged GEMM (B, s, r/N, 2c)
     a, bproj = torch.chunk(ab, 2, dim=-1)
     mask = msa_mask[..., None].to(a.dtype)
-    a = a * mask
-    bproj = bproj * mask
-    if ops.fused_opm_supported(c, p["out"]["w"].shape[1], a.dtype, a.device):
-        return ops.fused_outer_product_mean(a, bproj, msa_mask, msa_mask,
-                                            p["out"]["w"], p["out"]["b"],
-                                            tile=cfg.opm_s_tile)
+    b_full = duality.trigger(dist, "all_gather", bproj * mask, axis=2)
+    mask_full = dist.all_gather(msa_mask, axis=2)          # (B, s, r)
+    a = duality.mark(a, "opm_left") * mask
+    b_full = duality.block(b_full)                         # (B, s, r, c)
+    if (ops.fused_opm_supported(c, p["out"]["w"].shape[1], a.dtype, a.device)
+            and dist.sharded_opm_supported(a.shape[2])):
+        return dist.sharded_opm(a, b_full, msa_mask, mask_full,
+                                p["out"]["w"], p["out"]["b"],
+                                tile=cfg.opm_s_tile)
 
     def opm_block(b_blk, mask_blk):
-        o = torch.einsum("bsic,bsjd->bijcd", a, b_blk)     # (B, r, jc, c, c)
+        o = torch.einsum("bsic,bsjd->bijcd", a, b_blk)     # (B, r/N, jc, c, c)
         norm = torch.einsum("bsi,bsj->bij", msa_mask, mask_blk)
         o = (o.float() / (norm[..., None, None] + 1e-3)).to(a.dtype)
         return dense(p["out"], o.reshape(o.shape[:3] + (c * c,)))
 
-    jc, r = cfg.opm_chunk, bproj.shape[2]
+    jc, r = cfg.opm_chunk, b_full.shape[2]
     if not jc or r % jc != 0 or jc >= r:
-        return opm_block(bproj, msa_mask)
-    # j-chunked: the (B, r, jc, c*c) outer product one block at a time.
-    return torch.cat([opm_block(bproj[:, :, j:j + jc], msa_mask[:, :, j:j + jc])
+        return opm_block(b_full, mask_full)
+    # j-chunked: the (B, r/N, jc, c*c) outer product one block at a time.
+    return torch.cat([opm_block(b_full[:, :, j:j + jc],
+                                mask_full[:, :, j:j + jc])
                       for j in range(0, r, jc)], dim=2)
 
 
-def triangle_mult_core(p, z_src, pair_mask, tile: int = 0):
+def triangle_mult_core(p, z_src, pair_mask, tile: int = 0, dist=None):
     """The gated triangular multiplicative update in ``z_src`` coords
-    (already LN'ed). Fused branch: the b half is gated and masked here, the
-    a half's gating, the k-product, the output LN, projection and gate run
-    in one op, with the tile ``tile`` (``cfg.tri_k_tile``). Materialized
-    branch (by the plan, or a width outside the
-    kernel's envelope): the gated a and b, the (B, r, r, c) product, the
-    output LN, the projection and the gate, one after another."""
-    ab = dense(p["proj"], z_src)                 # (B, r, k, 2c) merged
+    (already LN'ed; rows sharded under DAP). Fused branch: the b half is
+    gated and masked here and gathered on its row axis, across the output
+    gate's projection; the a half's gating, the k-product, the output LN,
+    projection and gate run in one op (``dist.sharded_triangle``), with the
+    tile ``tile`` (``cfg.tri_k_tile``). Materialized branch (by the plan, or
+    a width outside the kernel's envelope): the gated a and b, b gathered,
+    the (B, r/N, r, c) product, the output LN, the projection and the gate,
+    one after another."""
+    dist = _resolve(dist)
+    ab = dense(p["proj"], z_src)                 # (B, r/N, k, 2c) merged
     g = dense(p["gate"], z_src)
-    g_lin = z_src @ p["gate_out"]["w"].to(z_src.dtype)
-    if not ops.fused_triangle_supported(ab.shape[-1] // 2,
-                                        p["out"]["w"].shape[1], ab.dtype,
-                                        ab.device):
+    if not (ops.fused_triangle_supported(ab.shape[-1] // 2,
+                                         p["out"]["w"].shape[1], ab.dtype,
+                                         ab.device)
+            and dist.sharded_triangle_supported(ab.shape[1])):
         ab = ab * torch.sigmoid(g.float()).to(ab.dtype)
         ab = ab * pair_mask[..., None].to(ab.dtype)
         a, bm = torch.chunk(ab, 2, dim=-1)
-        o = torch.einsum("bikc,bjkc->bijc", a, bm)          # (B, r, r, c)
+        b_full = duality.trigger(dist, "all_gather", bm, axis=1)
+        g_lin = (duality.mark(z_src, "tri_left")
+                 @ p["gate_out"]["w"].to(z_src.dtype))
+        o = torch.einsum("bikc,bjkc->bijc", a,
+                         duality.block(b_full))             # (B, r/N, r, c)
         upd = dense(p["out"], layer_norm(p["ln_out"], o))
         return ops.bias_sigmoid_mul(g_lin, p["gate_out"]["b"], upd)
     a_lin, b_lin = torch.chunk(ab, 2, dim=-1)
     ga, gb = torch.chunk(g, 2, dim=-1)
     bm = (b_lin.float() * torch.sigmoid(gb.float())).to(ab.dtype)
     bm = bm * pair_mask[..., None].to(ab.dtype)
-    return ops.fused_triangle_mult(
-        a_lin, ga, pair_mask, bm, p["ln_out"]["gamma"], p["ln_out"]["beta"],
-        p["out"]["w"], p["out"]["b"], g_lin, p["gate_out"]["b"], tile=tile)
+    b_full = duality.trigger(dist, "all_gather", bm, axis=1)   # (B, r, k, c)
+    del bm
+    g_lin = duality.mark(z_src, "tri_left") @ p["gate_out"]["w"].to(
+        z_src.dtype)
+    return dist.sharded_triangle(
+        a_lin, ga, pair_mask, duality.block(b_full), p["ln_out"]["gamma"],
+        p["ln_out"]["beta"], p["out"]["w"], p["out"]["b"], g_lin,
+        p["gate_out"]["b"], tile=tile)
 
 
 def triangle_mult_outgoing(p, pair, pair_mask,
-                           cfg: EvoformerConfig | None = None):
+                           cfg: EvoformerConfig | None = None, dist=None):
     return triangle_mult_core(p, layer_norm(p["ln_in"], pair), pair_mask,
-                              tile=cfg.tri_k_tile if cfg is not None else 0)
+                              tile=cfg.tri_k_tile if cfg is not None else 0,
+                              dist=dist)
 
 
 def triangle_mult_incoming(p, pair_t, pair_mask_t,
-                           cfg: EvoformerConfig | None = None):
+                           cfg: EvoformerConfig | None = None, dist=None):
     """incoming(z)_ij = sum_k a_ki b_kj == outgoing_core(z^T)_ij: computed in
-    transposed coords and swapped back."""
+    transposed coords (``pair_t`` (B, j/N, i, Hz), the all-to-all
+    transposed pair) and swapped back."""
     z_n_t = layer_norm(p["ln_in"], pair_t)
     return transpose_pair(triangle_mult_core(
-        p, z_n_t, pair_mask_t, tile=cfg.tri_k_tile if cfg is not None else 0))
+        p, z_n_t, pair_mask_t, tile=cfg.tri_k_tile if cfg is not None else 0,
+        dist=dist), dist)
 
 
-def triangle_attention(p, pair, seq_mask, cfg: EvoformerConfig):
-    """Around the starting node on (B, i, j, Hz): per-row attention over k
-    with bias b(j, k)."""
+def triangle_attention(p, pair, seq_mask, cfg: EvoformerConfig, dist=None):
+    """Around the starting node on (B, r/N, r, Hz) [i shard]: per-row
+    attention over k with bias b(j, k), projected from the local rows and
+    gathered across the QKV projection."""
+    dist = _resolve(dist)
     b, r_i, r, _ = pair.shape
     dims = AttnDims(cfg.pair_heads, cfg.pair_heads, cfg.head_dim)
     z_n = layer_norm(p["ln"], pair)
-    bias = dense(p["bias"], z_n).permute(0, 3, 1, 2)       # (B, H, r, r)
+    bias = duality.trigger(dist, "all_gather",
+                           dense(p["bias"], z_n).permute(0, 3, 1, 2),
+                           axis=2)                        # (B, H, r, r)
     key_mask = seq_mask[:, None, :].expand(b, r_i, r)
     return _gated_attention(p["attn"], z_n, bias, key_mask, dims,
                             chunk=cfg.inference_chunk,
-                            kv_tile=cfg.attn_kv_tile)
+                            kv_tile=cfg.attn_kv_tile, dist=dist)
 
 
 # ---------------------------------------------------------------------------
@@ -320,42 +395,66 @@ def triangle_attention(p, pair, seq_mask, cfg: EvoformerConfig):
 def evoformer_block(params: Params, msa: torch.Tensor, pair: torch.Tensor,
                     msa_mask: torch.Tensor, seq_mask: torch.Tensor,
                     pair_mask: torch.Tensor, *, cfg: EvoformerConfig,
-                    keeps: dict | None = None):
-    """One Evoformer block: msa (B, s, r, Hm), pair (B, r, r, Hz), masks
-    msa_mask (B, s, r), seq_mask (B, r), pair_mask (B, r, r). ``keeps``: the
-    block's dropout masks by site (``DROPOUT_SITES``), or None for none."""
+                    keeps: dict | None = None, dist=None):
+    """One Evoformer block: msa (B, s/N, r, Hm) [s shard], pair
+    (B, r/N, r, Hz) [i shard], masks msa_mask (B, s/N, r), seq_mask (B, r)
+    whole, pair_mask (B, r/N, r); N = 1 on one device. ``keeps``: the
+    block's dropout masks by site (``DROPOUT_SITES``), already the rank's
+    shards, or None for none. ``dist=None`` resolves the current plan's
+    ``ParallelPolicy``."""
+    dist = _resolve(dist)
     kp = keeps or {}
     rm, rz = cfg.dropout_msa, cfg.dropout_pair
     # Each update goes straight into its residual add, so none is still
     # held while the next site runs.
     msa = _residual_add(
-        msa_row_attention(params["msa_row"], msa, pair, seq_mask, cfg), msa,
-        rm, kp.get("msa_row"))
+        msa_row_attention(params["msa_row"], msa, pair, seq_mask, cfg,
+                          dist=dist), msa, rm, kp.get("msa_row"))
+    # All-to-all #1: s shard -> r shard, the MSA and its mask.
+    msa = dist.all_to_all(msa, split_axis=2, concat_axis=1)
+    msa_mask_r = dist.all_to_all(msa_mask, split_axis=2, concat_axis=1)
     msa = _residual_add(
-        msa_col_attention(params["msa_col"], msa, msa_mask, cfg), msa)
+        msa_col_attention(params["msa_col"], msa, msa_mask_r, cfg,
+                          dist=dist), msa)
     msa = _residual_add(msa_transition(params["msa_trans"], msa), msa)
 
-    pair = _residual_add(outer_product_mean(params["opm"], msa, msa_mask, cfg),
-                         pair, rz, kp.get("opm"))
+    pair_upd = outer_product_mean(params["opm"], msa, msa_mask_r, cfg,
+                                  dist=dist)
+    # All-to-all #2, the Duality-Async window: the MSA goes back to the s
+    # shard while the whole pair stack runs; blocked at the block's end.
+    msa = duality.trigger(dist, "all_to_all", msa, split_axis=1,
+                          concat_axis=2)
+    pair = _residual_add(pair_upd, pair, rz, kp.get("opm"))
+    del pair_upd
+    pair = duality.mark(pair, "tri_mult_out")
     pair = _residual_add(
-        triangle_mult_outgoing(params["tri_mult_out"], pair, pair_mask, cfg),
+        triangle_mult_outgoing(params["tri_mult_out"], pair, pair_mask, cfg,
+                               dist=dist),
         pair, rz, kp.get("tri_mult_out"))
+    pair = duality.mark(pair, "tri_mult_in")
     pair = _residual_add(
-        triangle_mult_incoming(params["tri_mult_in"], transpose_pair(pair),
-                               transpose_pair(pair_mask), cfg),
+        triangle_mult_incoming(params["tri_mult_in"],
+                               transpose_pair(pair, dist),
+                               transpose_pair(pair_mask, dist), cfg,
+                               dist=dist),
         pair, rz, kp.get("tri_mult_in"))
+    pair = duality.mark(pair, "tri_attn_start")
     pair = _residual_add(
-        triangle_attention(params["tri_attn_start"], pair, seq_mask, cfg),
+        triangle_attention(params["tri_attn_start"], pair, seq_mask, cfg,
+                           dist=dist),
         pair, rz, kp.get("tri_attn_start"))
     # Ending-node attention == starting-node attention on the transpose.
+    pair = duality.mark(pair, "tri_attn_end")
     pair = _residual_add(
         transpose_pair(triangle_attention(
-            params["tri_attn_end"], transpose_pair(pair), seq_mask, cfg)),
+            params["tri_attn_end"], transpose_pair(pair, dist), seq_mask, cfg,
+            dist=dist), dist),
         pair, rz, kp.get("tri_attn_end"))
+    pair = duality.mark(pair, "pair_trans")
     pair = _residual_add(
         transition(params["pair_trans"]["mlp"],
                    layer_norm(params["pair_trans"]["ln"], pair)), pair)
-    return msa, pair
+    return duality.block(msa), pair
 
 
 # The aten matrix products whose outputs the "dots" policy keeps: the
@@ -381,42 +480,70 @@ def _dots_contexts():
 REMAT_CONTEXTS = {"nothing": noop_context_fn, "dots": _dots_contexts}
 
 
+def local_keeps(keeps: dict | None, dist) -> dict | None:
+    """The rank's shards of one block's dropout masks, drawn whole on every
+    rank: each mask is cut on axis 1 (the MSA's s, the pair's i) where it is
+    not broadcast there."""
+    if keeps is None:
+        return None
+    return {site: dist.shard(k, axis=1) if k.shape[1] > 1 else k
+            for site, k in keeps.items()}
+
+
+def _synced(p: Params, dist) -> Params:
+    """A block's parameters through ``dist.sync_grads``: replicated on every
+    rank, so each rank's gradient is a partial sum over its shard until the
+    backward all-reduces them (the identity on one device)."""
+    if isinstance(dist, LocalDist):
+        return p
+    leaves = iter(dist.sync_grads(tree_leaves(p)))
+    return tree_map(lambda _: next(leaves), p)
+
+
 def evoformer_stack(params: list[Params], msa: torch.Tensor,
                     pair: torch.Tensor, msa_mask: torch.Tensor,
                     seq_mask: torch.Tensor, pair_mask: torch.Tensor, *,
                     cfg: EvoformerConfig, keeps: list[dict] | None = None,
-                    remat: bool = False):
-    """The n_blocks Evoformer blocks in a Python loop. ``keeps``: one dict
-    of dropout masks per block, or None. ``remat``: when a graph is being
-    built, each block runs again in the backward (activation checkpointing
-    per block, the reference's ``remat=True``). Under ``cfg.remat_policy``
-    "nothing" a block keeps only its inputs; under "dots" it also keeps the
-    outputs of its matrix products (a selective checkpoint), which the
-    recompute takes instead of running them again. Either way the recompute
-    runs every kernel of the block a second time. It runs under the plan
-    the forward ran under, which the backward's thread does not see unless
-    the block re-enters it, so it takes the forward's branches and makes
-    the same products in the same order. An unknown policy raises
+                    remat: bool = False, dist=None):
+    """The n_blocks Evoformer blocks in a Python loop, on the tensors in
+    hand (the rank's shards under DAP, ``evoformer_block``'s layout).
+    ``keeps``: one dict of dropout masks per block, whole (each rank takes
+    its shards, ``local_keeps``), or None. ``dist=None`` resolves the
+    current plan's ``ParallelPolicy``; under a process group each block's
+    parameters enter through ``dist.sync_grads``. ``remat``: when a graph is
+    being built, each block runs again in the backward (activation
+    checkpointing per block, the reference's ``remat=True``). Under
+    ``cfg.remat_policy`` "nothing" a block keeps only its inputs; under
+    "dots" it also keeps the outputs of its matrix products (a selective
+    checkpoint), which the recompute takes instead of running them again.
+    Either way the recompute runs every kernel of the block a second time.
+    It runs under the plan and the ``dist`` the forward ran under, which
+    the backward's thread does not see unless the block re-enters them, so
+    it takes the forward's branches, makes the same products in the same
+    order and launches the same collectives. An unknown policy raises
     ValueError."""
     if cfg.remat_policy not in REMAT_CONTEXTS:
         raise ValueError(f"remat_policy={cfg.remat_policy!r}: not one of "
                          f"{sorted(REMAT_CONTEXTS)}")
     context_fn = REMAT_CONTEXTS[cfg.remat_policy]
     plan = current_plan()
+    dist = _resolve(dist)
 
     def block_under_plan(*args, **kw):
         with use_plan(plan):
             return evoformer_block(*args, **kw)
 
     for i, p in enumerate(params):
-        kb = keeps[i] if keeps is not None else None
+        kb = local_keeps(keeps[i], dist) if keeps is not None else None
+        p = _synced(p, dist)
         if remat and torch.is_grad_enabled():
             with set_checkpoint_early_stop(False):
                 msa, pair = checkpoint(
                     block_under_plan, p, msa, pair, msa_mask, seq_mask,
-                    pair_mask, cfg=cfg, keeps=kb, use_reentrant=False,
-                    context_fn=context_fn)
+                    pair_mask, cfg=cfg, keeps=kb, dist=dist,
+                    use_reentrant=False, context_fn=context_fn)
         else:
             msa, pair = evoformer_block(p, msa, pair, msa_mask, seq_mask,
-                                        pair_mask, cfg=cfg, keeps=kb)
+                                        pair_mask, cfg=cfg, keeps=kb,
+                                        dist=dist)
     return msa, pair

@@ -29,8 +29,12 @@
 //    rows of s of a and b (TMA, zero fill past S, I and J) and the masks of
 //    the sub-tile's pixels (4-byte cp.async by its 32 lanes, which the
 //    stage's barrier also waits for); then, per tile, the C^2 / 64 chunks of w,
-//    64 rows of (c1, c2) each, in an order staggered by block so that the
-//    SMs do not all ask for the same chunk at once. A stage is released by
+//    64 rows of (c1, c2) each, in an order staggered by the tile's j index
+//    so that the SMs do not all ask for the same chunk at once. The stagger
+//    sets the order in which the projection sums its chunks, so it depends
+//    on j alone: a pixel's output is then the same bits whichever block
+//    takes its tile and whatever I is, and a shard of rows i (Dynamic Axial
+//    Parallelism hands each rank one) gives the whole call's rows exactly. A stage is released by
 //    the 8 consumer warps once the wgmma that read it completed, one group
 //    kept in flight. The producer's warpgroup hands registers to the
 //    consumers (setmaxnreg), whose 128-float accumulators then do not spill;
@@ -386,7 +390,7 @@ outer_product_mean_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
       for (int k = 0; k < G::NKB; ++k, ++n) {
-        const int kb = (k + blockIdx.x) % G::NKB;   // staggered over the blocks
+        const int kb = (k + tj) % G::NKB;   // staggered over the j tiles
         const uint32_t slot = n % G::NSLOT;
         mbar_wait(empty + 8 * slot, ((n / G::NSLOT) & 1) ^ 1);
         const uint32_t dst = ring + slot * G::SLOT, bar = full + 8 * slot;
@@ -506,7 +510,7 @@ outer_product_mean_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     int prev = -1;
 #pragma unroll 1
     for (int k = 0; k < G::NKB; ++k, ++n) {
-      const int kb = (k + blockIdx.x) % G::NKB;
+      const int kb = (k + tj) % G::NKB;
       const uint32_t slot = n % G::NSLOT;
       mbar_wait(full + 8 * slot, (n / G::NSLOT) & 1);
       if (proj) {

@@ -14,11 +14,11 @@ table in ``kernels/ops.py``. ``ParallelPolicy``, ``MemoryPolicy`` and
 ``AsyncPolicy`` are the reference's too: ``MemoryPolicy.apply`` writes its
 budget-free knobs into the EvoformerConfig and ``core.alphafold`` plans the
 rest against its ``hbm_budget`` (AutoChunk, ``memory/autochunk.py``);
-``ParallelPolicy.make_dist`` builds the one-device backend
-(``core/dist.py``), and ``exec.session.FastFold`` raises on any other
-backend, naming the ``ROADMAP.md`` item that will serve it; the async
-window is the identity on one device, so ``AsyncPolicy`` is accepted as it
-is.
+``ParallelPolicy.make_dist`` builds the backend it names (``core/dist.py``):
+``LocalDist`` for ``"local"``, DAP on the process group its ``mesh`` field
+holds for ``"shard_map"`` (the stack on shards, ``core.dap``) and
+``"gspmd"`` (the whole model); ``AsyncPolicy.overlap_windows`` opens or
+closes the Duality-Async windows (``core/duality.py``).
 
 Scoping: ``current_plan()`` is the innermost ``use_plan`` scope's plan,
 else the plan the environment asks for (``envcompat.plan_from_env``). The
@@ -69,8 +69,9 @@ class KernelPolicy:
 
 @dataclass(frozen=True)
 class ParallelPolicy:
-    """Distribution backend and mesh axis. The port runs ``"local"`` (one
-    device) only."""
+    """Distribution backend and mesh axis. ``mesh`` holds the
+    ``torch.distributed`` process group of the DAP backends (None: the
+    default group)."""
 
     backend: str = "local"
     axis: str = "model"
@@ -83,7 +84,7 @@ class ParallelPolicy:
 
     def make_dist(self):
         """The backend this policy names (``core.dist.dist_from_policy``):
-        ``LocalDist`` for ``"local"``; the others raise."""
+        ``LocalDist``, ``ProcessGroupDist`` or ``WholeModelDist``."""
         from repro_torch.core.dist import dist_from_policy
 
         return dist_from_policy(self)
@@ -122,8 +123,8 @@ class MemoryPolicy:
 
 @dataclass(frozen=True)
 class AsyncPolicy:
-    """Duality-Async overlap windows; on one device the window is the
-    identity either way."""
+    """Duality-Async overlap windows: False runs each windowed collective
+    synchronously (the same numbers); on one device there is no window."""
 
     overlap_windows: bool = True
 
@@ -178,8 +179,8 @@ class ExecutionPlan:
         return envcompat.plan_from_env()
 
     def to_dict(self) -> dict:
-        """Plain-JSON form of the plan. A plan carrying a live mesh does not
-        serialise."""
+        """Plain-JSON form of the plan. A plan carrying a live process group
+        does not serialise."""
         if self.parallel.mesh is not None:
             raise ValueError(
                 "ExecutionPlan.to_dict: ParallelPolicy.mesh holds a live "

@@ -25,10 +25,23 @@ device, a compute dtype and an ``ExecutionPlan`` once.
 binds the plan current when the facade is built (the innermost
 ``use_plan`` scope, else the environment's ``REPRO_PLAN``). Every entry
 point runs under its plan (``use_plan``), a per-call ``plan=`` overriding
-the bound one; a plan asking for a backend the port does not serve yet
-raises (``ParallelPolicy.make_dist``, at construction and in every
-forward). Every forward resolves its chunk knobs from the plan's
+the bound one. Every forward resolves its chunk knobs from the plan's
 ``MemoryPolicy`` (``core.alphafold.planned_evoformer``).
+
+Dynamic Axial Parallelism: bound to a plan whose ``ParallelPolicy`` is
+``"gspmd"``, on every rank of an initialised process group (``mesh``: the
+group, None for the default one; ``core.dist.form_group``), the facade runs
+the whole model under DAP (``core.dist.WholeModelDist``): each rank holds
+the whole batch and the whole parameters, the Evoformer stack runs on the
+rank's shards, and each rank's outputs, loss and gradients are the whole
+ones, equal on every rank; draw the dropout masks from generators seeded
+alike. ``make_train_step(ff.loss_fn)`` then keeps the ranks' parameters
+and optimizer states equal to the bit. The backend is built at
+construction (``ParallelPolicy.make_dist``), so a plan with no group to
+run on raises there.
+
+    form_group(rank, world, "/tmp/store", backend="nccl")
+    ff = FastFold(FULL, plan=ExecutionPlan().with_parallel(backend="gspmd"))
 """
 from __future__ import annotations
 
@@ -62,7 +75,7 @@ class FastFold:
         self.config = config
         self.device = resolve_device(device)
         self.plan = plan if plan is not None else current_plan()
-        self.plan.parallel.make_dist()      # raises for a backend not served
+        self.plan.parallel.make_dist()      # raises where no group exists
 
     def init(self, seed: int = 0):
         """Fresh parameters from a seeded CPU generator, on the device."""

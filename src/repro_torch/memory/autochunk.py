@@ -155,7 +155,8 @@ def evoformer_peak_bytes(cfg, *, batch: int, n_seq: int, n_res: int,
                          fused_triangle: bool | None = None,
                          fused_opm: bool | None = None,
                          dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Dominant activation terms (bytes) of one Evoformer block; their sum
+    """Dominant activation terms (bytes) of one Evoformer block, per rank
+    under DAP over ``dap`` ranks (the gathered operands whole); their sum
     is the modelled peak. ``fused`` is the attention sites' branch (the
     reference's single flag); ``fused_triangle`` and ``fused_opm`` the
     triangle updates' and the OPM's, ``fused`` where None. ``dtype`` is the
@@ -189,6 +190,15 @@ def evoformer_peak_bytes(cfg, *, batch: int, n_seq: int, n_res: int,
     terms["opm"] = batch * opm_transient_bytes(
         r_loc, n_res, n_seq, cfg.opm_dim, tile=opm_s_tile,
         opm_chunk=opm_chunk, fused=fo, dtype_bytes=dt, d_out=cfg.d_pair)
+    if dap > 1:
+        # Under DAP each rank holds the all-gathers' whole results: while a
+        # gathered (B, H, r, r) bias is placed, its receive buffer beside
+        # it; on the triangle kernel's branch the gathered (B, r, r, c) b
+        # and its receive buffer (the materialized branch's operands count
+        # the gathered b already).
+        terms["gathers"] = batch * n_res * n_res * dt * max(
+            max(cfg.msa_heads, cfg.pair_heads),
+            (2 if ft else 1) * cfg.tri_mult_dim)
     return terms
 
 

@@ -748,3 +748,174 @@ def test_card_budget_is_the_cards_memory_less_what_is_allocated(gen):
     x = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
     assert hbm_budget_bytes("cuda") == total - torch.cuda.memory_allocated()
     assert hbm_budget_bytes("cuda") <= total - x.numel()
+
+
+# The shapes Dynamic Axial Parallelism over two ranks gives the triangle
+# update and the outer-product-mean at r = 256, s = 128 (FULL widths): each
+# rank's I = 128 rows against the gathered J = K = 256 (the incoming update
+# on the transposed pair's layout), and the OPM's I = 128 columns against
+# J = 256. Forward on the kernel and the backward through the op's
+# autograd, against the plain version (the "oracle" leg) on the same card.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("incoming", [False, True])
+def test_triangle_mult_at_dap_shard_shapes(gen, incoming, dtype, tol):
+    bsz, ni, nj, nk, c, d = 1, 128, 256, 256, 128, 128
+    proj = (bsz, nk, ni, 2 * c) if incoming else (bsz, ni, nk, 2 * c)
+    ab = _randn(gen, proj, 1.0, dtype)
+    g = _randn(gen, proj, 2.0, dtype)
+    mask = (torch.rand(proj[:3], generator=gen, device="cuda") < 0.9).float()
+    if incoming:
+        ab, g, mask = ab.transpose(1, 2), g.transpose(1, 2), mask.transpose(1, 2)
+    leaves = [ab[..., :c], g[..., :c], mask,
+              _randn(gen, (bsz, nj, nk, c), 1.0, dtype),
+              1 + _randn(gen, (c,), 0.1), _randn(gen, (c,), 0.1),
+              _randn(gen, (c, d), c ** -0.5), _randn(gen, (d,), 0.1),
+              _randn(gen, (bsz, ni, nj, d), 2.0, dtype), _randn(gen, (d,))]
+    outs = {}
+    for leg in ("auto", "oracle"):
+        args = [t.detach().clone().requires_grad_(i != 2)
+                for i, t in enumerate(leaves)]
+        _build.reset_launches()
+        with use_plan(ExecutionPlan(kernels=KernelPolicy(triangle=leg))):
+            out = ops.fused_triangle_mult(*args)
+            out.float().sin().sum().backward()
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["triangle_mult"] == (leg == "auto")
+        outs[leg] = [out] + [a.grad for i, a in enumerate(args) if i != 2]
+    for got, want in zip(outs["auto"], outs["oracle"]):
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_outer_product_mean_at_dap_shard_shapes(gen, dtype, tol):
+    bsz, ns, ni, nj, c, d = 1, 128, 128, 256, 32, 128
+    mask_b = (torch.rand((bsz, ns, nj), generator=gen, device="cuda")
+              < 0.9).float()
+    mask_a = mask_b[..., :ni].contiguous()
+    leaves = [_randn(gen, (bsz, ns, ni, c), 1.0, dtype)
+              * mask_a[..., None].to(dtype),
+              _randn(gen, (bsz, ns, nj, c), 1.0, dtype)
+              * mask_b[..., None].to(dtype),
+              _randn(gen, (c * c, d), 1.0 / c, dtype), _randn(gen, (d,))]
+    outs = {}
+    for leg in ("auto", "oracle"):
+        a, b, w, bias = [t.detach().clone().requires_grad_(True)
+                         for t in leaves]
+        _build.reset_launches()
+        with use_plan(ExecutionPlan(kernels=KernelPolicy(opm=leg))):
+            out = ops.fused_outer_product_mean(a, b, mask_a, mask_b, w, bias)
+            out.float().sin().sum().backward()
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["outer_product_mean"] == (leg == "auto")
+        outs[leg] = [out, a.grad, b.grad, w.grad, bias.grad]
+    for got, want in zip(outs["auto"], outs["oracle"]):
+        _close(got, want, tol)
+
+
+def test_process_group_backend_on_one_nccl_rank_is_local_dist(gen, tmp_path):
+    """One FULL-width Evoformer block (r = 64, s = 32, bf16, dropout,
+    checkpointed) on a world-size-1 NCCL group: its outputs and every
+    gradient equal to ``LocalDist``'s to the bit (the same products and
+    kernels; the collectives and the trigger/block pair move the bytes
+    unchanged)."""
+    import dataclasses
+
+    from repro_torch.configs import FULL
+    from repro_torch.core import dist as D
+    from repro_torch.core.alphafold import draw_dropout_keeps
+    from repro_torch.core.evoformer import evoformer_stack, init_evoformer_stack
+    from repro_torch.layers.params import tree_leaves, tree_map
+
+    evo = FULL.evoformer
+    cpu = torch.Generator().manual_seed(0)
+    params = tree_map(lambda t: (0.05 * torch.randn(t.shape, generator=cpu))
+                      .to("cuda"), init_evoformer_stack(cpu, evo)[:1])
+    b, s, r = 1, 32, 64
+    msa = _randn(gen, (b, s, r, evo.d_msa), 1.0, torch.bfloat16)
+    pair = _randn(gen, (b, r, r, evo.d_pair), 1.0, torch.bfloat16)
+    masks = (torch.ones(b, s, r, device="cuda"), torch.ones(b, r, device="cuda"),
+             torch.ones(b, r, r, device="cuda"))
+    keeps = draw_dropout_keeps(dataclasses.replace(FULL, evoformer=(
+        dataclasses.replace(evo, n_blocks=1))), (b, s, r), gen)
+
+    def run(dist):
+        live = tree_map(lambda t: t.clone().requires_grad_(True), params)
+        m_in, z_in = msa.clone().requires_grad_(True), pair.clone().requires_grad_(True)
+        m, z = evoformer_stack(live, m_in, z_in, *masks, cfg=evo, keeps=keeps,
+                               remat=True, dist=dist)
+        (m.float().sin().sum() + z.float().sin().sum()).backward()
+        return [m, z, m_in.grad, z_in.grad] + [t.grad for t in tree_leaves(live)]
+
+    want = run(D.LocalDist())
+    D.form_group(0, 1, str(tmp_path / "store"), backend="nccl", device="cuda")
+    try:
+        got = run(D.ProcessGroupDist())
+    finally:
+        D.tdist.destroy_process_group()
+    assert len(got) == len(want)
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert torch.equal(x, y), i
+
+
+# Under Dynamic Axial Parallelism each rank calls a kernel on its own rows
+# (groups for the attention, rows i for the triangle update and the
+# outer-product-mean) with the gathered operands whole. A kernel whose
+# arithmetic depends on where a row lies in the call, or on which block
+# takes its tile, makes the ranks' rows differ from the one-device call's
+# and the bf16 fold drift away through the blocks. Each rank's shard, at
+# the shapes of N = 2 and 4 at r = 256, s = 128 (FULL widths), must give
+# the whole call's rows to the bit.
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("kernel", ["attention", "triangle", "opm"])
+def test_kernel_shard_of_rows_is_the_whole_calls_rows(gen, kernel, n):
+    bf = torch.bfloat16
+    s, r = 128, 256
+    if kernel == "attention":
+        h, hd = 4, 32
+        y = _randn(gen, (1, r, r, 3 * h * hd), 1.0, bf)
+        bias = _randn(gen, (1, h, r, r), 1.0, bf)
+        mask = torch.where(torch.rand((1, r, r), generator=gen,
+                                      device="cuda") < 0.9, 0.0, -1e9)
+
+        def call(rows):
+            q, k, v = (t.unflatten(-1, (h, hd)) for t in torch.split(
+                y[:, rows], h * hd, dim=-1))
+            return ops.fused_attention(q, k, v, bias=bias,
+                                       mask=mask[:, rows].contiguous())
+    elif kernel == "triangle":
+        c = d = 128
+        ab = _randn(gen, (1, r, r, 2 * c), 1.0, bf)
+        g = _randn(gen, (1, r, r, 2 * c), 2.0, bf)
+        pmask = (torch.rand((1, r, r), generator=gen, device="cuda")
+                 < 0.9).float()
+        b_full = _randn(gen, (1, r, r, c), 1.0, bf)
+        g_lin = _randn(gen, (1, r, r, d), 2.0, bf)
+        rest = [1 + _randn(gen, (c,), 0.1), _randn(gen, (c,), 0.1),
+                _randn(gen, (c, d), c ** -0.5), _randn(gen, (d,), 0.1)]
+        g_bias = _randn(gen, (d,))
+
+        def call(rows):
+            a_rows = ab[:, rows].contiguous()
+            g_rows = g[:, rows].contiguous()
+            return ops.fused_triangle_mult(
+                a_rows[..., :c], g_rows[..., :c], pmask[:, rows].contiguous(),
+                b_full, *rest, g_lin[:, rows].contiguous(), g_bias)
+    else:
+        c, d = 32, 128
+        mask = (torch.rand((1, s, r), generator=gen, device="cuda")
+                < 0.9).float()
+        a = _randn(gen, (1, s, r, c), 1.0, bf) * mask[..., None].to(bf)
+        b = _randn(gen, (1, s, r, c), 1.0, bf) * mask[..., None].to(bf)
+        w, bias = _randn(gen, (c * c, d), 1.0 / c, bf), _randn(gen, (d,))
+
+        def call(rows):
+            return ops.fused_outer_product_mean(
+                a[:, :, rows].contiguous(), b, mask[:, :, rows].contiguous(),
+                mask, w, bias)
+    whole = call(slice(0, r))
+    size = r // n
+    for rank in range(n):
+        rows = slice(rank * size, (rank + 1) * size)
+        assert torch.equal(call(rows), whole[:, rows]), rank

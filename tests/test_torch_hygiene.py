@@ -38,7 +38,9 @@ def _port_files():
                                          ROOT / "scripts" / "torch_profile_serve.py",
                                          ROOT / "scripts" / "torch_fold_memory.py",
                                          ROOT / "scripts" / "torch_fold_latency.py",
-                                         ROOT / "scripts" / "torch_train_alphafold.py"]
+                                         ROOT / "scripts" / "torch_train_alphafold.py",
+                                         # What spawned test ranks import.
+                                         ROOT / "tests" / "torch_dist_cases.py"]
 
 
 def _imported_modules(path: Path):

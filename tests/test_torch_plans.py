@@ -24,6 +24,7 @@ from repro.core import evoformer as jevo
 from repro.exec import envcompat as j_envcompat
 from repro.exec import plan as jplan
 from repro_torch.configs import SMOKE as T_SMOKE
+from repro_torch.core import dist as tdist
 from repro_torch.data import protein_batches
 from repro_torch.exec import FastFold
 from repro_torch.exec import plan as tplan
@@ -112,15 +113,39 @@ def test_environment_selects_the_reference_plan(env, monkeypatch):
 @pytest.mark.parametrize("plan,item", [
     (tplan.ExecutionPlan().with_parallel(backend="shard_map"), "item 3"),
 ])
-def test_fastfold_raises_on_what_the_port_does_not_serve(plan, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        FastFold(T_SMOKE, device="cpu", plan=plan)
-    ff = FastFold(T_SMOKE, device="cpu")
-    batch = next(protein_batches(batch=1, n_seq=3, n_res=6, seed=0)).as_dict()
-    with pytest.raises(NotImplementedError, match=item):
-        ff.forward(ff.init(0), batch, plan=plan)
-    with pytest.raises(NotImplementedError, match=item):
+def test_fastfold_raises_on_what_the_port_does_not_serve(plan, item,
+                                                        tmp_path):
+    """ROADMAP Queue 1 item 3 (DAP) is served: a "shard_map" plan builds
+    the process-group backend on the default group where one exists (and
+    raises where none does); the backend raises only for what it cannot
+    take: a whole model (it runs the Evoformer on shards its caller made;
+    the whole model is "gspmd") and a group size that does not divide s or
+    r. The whole model under "gspmd" on one rank is the local forward."""
+    with pytest.raises(RuntimeError, match="process group"):
         plan.parallel.make_dist()
+    with pytest.raises(RuntimeError, match="process group"):
+        FastFold(T_SMOKE, device="cpu", plan=plan)
+    tdist.form_group(0, 1, str(tmp_path / "store"))
+    try:
+        d = plan.parallel.make_dist()
+        assert type(d) is tdist.ProcessGroupDist
+        assert d.group is None and d.axis_size == 1 and d.rank == 0
+        ff = FastFold(T_SMOKE, device="cpu", plan=plan)
+        batch = next(protein_batches(batch=1, n_seq=3, n_res=6,
+                                     seed=0)).as_dict()
+        params = ff.init(0)
+        with pytest.raises(ValueError, match="gspmd"):
+            ff.forward(params, batch)
+        with pytest.raises(ValueError, match=r"n_seq=3, n_res=6"):
+            tdist.check_layout(4, n_seq=3, n_res=6)
+        whole = plan.with_parallel(backend="gspmd")
+        assert type(whole.parallel.make_dist()) is tdist.WholeModelDist
+        got = ff.forward(params, batch, plan=whole)
+        want = ff.forward(params, batch, plan=tplan.ExecutionPlan())
+        for k in ("coords", "msa_logits", "distogram_logits"):
+            assert torch.equal(got[k], want[k]), k
+    finally:
+        tdist.tdist.destroy_process_group()
 
 
 def _reference_forward(tree, batch, plan, n_recycle=None):
