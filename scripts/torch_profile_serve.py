@@ -9,6 +9,7 @@ on the GPU (PyTorch port).
     PYTHONPATH=src python scripts/torch_profile_serve.py --triangle-dropout --n-res 256 384
     PYTHONPATH=src python scripts/torch_profile_serve.py --opm-layernorm --n-res 256 384
     PYTHONPATH=src python scripts/torch_profile_serve.py --gate-softmax --n-res 256 384 [--parent DIR]
+    PYTHONPATH=src python scripts/torch_profile_serve.py --lm musicgen-medium [--plan oracle]
 
 ``--plan`` names the ExecutionPlan the model runs under: a preset
 (default, oracle, interpret, triangle-oracle) or ``attention-oracle``,
@@ -74,6 +75,16 @@ checkout of this repository, e.g. ``git archive`` of the parent commit
 unpacked into an ignored directory), that checkout's own wrapper and
 kernel, built from its sources into its own ``build/kernels/``, timed in
 the order parent, this tree, this tree, parent.
+
+With ``--lm ARCH`` it profiles the LM serving engine instead: ARCH (a
+decoder config the port runs, e.g. musicgen-medium) at full width, fp32
+weights drawn on the card from the seed, bf16 compute, behind
+``ServingEngine`` with 4 slots of 512 rows, four prompts of 128 tokens
+(``lm_batches``) admitted and decoding. It profiles one prefill of 128
+tokens (``model_forward``, as the engine's prefill calls it) and one
+engine decode step (``engine.step()``: one batched decode of the 4 slots
+and the host's scheduling around it), each after warm-up calls, and
+prints for each the same lines as a request's.
 
 With ``--train`` it does the same for one step of
 ``make_train_step(FastFold(FULL).loss_fn)`` (the port's own init, bf16,
@@ -659,6 +670,67 @@ def gate_softmax_profile(n_res_list, n_seq: int, seed: int, smi: str,
                   lambda a: torch.softmax(a, -1), make_library_args)
 
 
+def lm_runners(arch: str, plan, seed: int):
+    """{phase: (the timed call, what the head line reports)} for the LM
+    serving engine at full width (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.models.decoder import init_model, model_forward
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.weights import random_params_like
+
+    cfg = get_config(arch)
+    with torch.device("meta"):
+        skeleton = init_model(torch.Generator(), cfg)
+    params = random_params_like(skeleton, seed, device="cuda")
+    prompts = next(lm_batches(vocab=cfg.vocab, batch=4, seq=128,
+                              seed=seed + 2)).tokens
+    engine = ServingEngine(params, cfg, n_slots=4, max_seq=512, plan=plan)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=400)
+    engine.step()                   # admits the four, then one decode
+    engine.step()                   # warm-up
+    prompt = torch.as_tensor(prompts[:1], dtype=torch.long, device="cuda")
+
+    def prefill():
+        with use_plan(plan), torch.no_grad():
+            model_forward(params, prompt, engine.cfg, mode="prefill",
+                          max_cache_len=512)
+
+    prefill()                       # warm-up
+    head = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": "bfloat16", "weights": "fp32"}
+    return {"prefill": (prefill, {**head, "tokens": 128}),
+            "decode_step": (engine.step, {**head, "batch": 4})}
+
+
+def report(prof, wall, head, latency, extra, top) -> None:
+    total_ms, groups, by_op, by_kernel = device_time(prof)
+    if total_ms == 0:
+        raise SystemExit("torch_profile_serve: the profiler recorded no "
+                         "device time")
+    print(json.dumps({**head, "latency_s": latency, **extra,
+                      "profiled_wall_s": wall, "device_kernel_ms": total_ms,
+                      "device_busy_share": total_ms / (wall * 1e3)}),
+          flush=True)
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(json.dumps({**head, "group": name, "ms": ms, "launches": n,
+                          "share": ms / total_ms}))
+    for op in sorted(GEMM_OPS & by_op.keys()):
+        ms, n, calls = by_op[op]
+        print(json.dumps({**head, "gemm_op": op, "calls": calls,
+                          "kernel_launches": n, "ms": ms}))
+    for op, (ms, n, _) in sorted(by_op.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(json.dumps({**head, "op": op, "ms": ms, "launches": n,
+                          "share": ms / total_ms}))
+    for name, (ms, n) in sorted(by_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        print(json.dumps({**head, "kernel": name[:120], "ms": ms,
+                          "launches": n, "share": ms / total_ms}),
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-res", type=int, nargs="+", default=[256])
@@ -681,6 +753,9 @@ def main() -> None:
     ap.add_argument("--parent", default=None,
                     help="with --gate-softmax: the root of another checkout "
                          "whose K2 and K4 are timed beside this tree's")
+    ap.add_argument("--lm", default=None, metavar="ARCH",
+                    help="profile the LM serving engine on this decoder "
+                         "config instead")
     ap.add_argument("--plan", choices=sorted(PLANS), default="default",
                     help="the ExecutionPlan the model runs under")
     ap.add_argument("--remat-policy", choices=sorted(REMAT_CONTEXTS),
@@ -707,6 +782,16 @@ def main() -> None:
         gate_softmax_profile(args.n_res, args.n_seq, args.seed, smi,
                              args.parent)
         return
+    if args.lm:
+        for phase, (run, extra) in lm_runners(args.lm, PLANS[args.plan],
+                                              args.seed).items():
+            latency = _timed(run)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = _timed(run)
+            report(prof, wall, {"device": smi, "phase": phase,
+                                "plan": args.plan}, latency, extra, args.top)
+        return
     cfg = dataclasses.replace(FULL, evoformer=dataclasses.replace(
         FULL.evoformer, remat_policy=args.remat_policy))
     ff = FastFold(cfg, plan=PLANS[args.plan])
@@ -728,34 +813,13 @@ def main() -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall = _timed(run)
-        total_ms, groups, by_op, by_kernel = device_time(prof)
-        if total_ms == 0:
-            raise SystemExit("torch_profile_serve: the profiler recorded no "
-                             "device time")
         head = {"n_res": n_res, "n_seq": args.n_seq, "plan": args.plan}
         if args.train:
             head["remat_policy"] = args.remat_policy
-        print(json.dumps({
-            "device": smi, **head, "n_blocks": FULL.evoformer.n_blocks,
-            "n_recycle": FULL.n_recycle, "latency_s": latency, **extra,
-            "profiled_wall_s": wall, "device_kernel_ms": total_ms,
-            "device_busy_share": total_ms / (wall * 1e3)}), flush=True)
-        for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-            print(json.dumps({**head, "group": name, "ms": ms, "launches": n,
-                              "share": ms / total_ms}))
-        for op in sorted(GEMM_OPS & by_op.keys()):
-            ms, n, calls = by_op[op]
-            print(json.dumps({**head, "gemm_op": op, "calls": calls,
-                              "kernel_launches": n, "ms": ms}))
-        top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:args.top]
-        for op, (ms, n, _) in top:
-            print(json.dumps({**head, "op": op, "ms": ms, "launches": n,
-                              "share": ms / total_ms}))
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:args.top]
-        for name, (ms, n) in top:
-            print(json.dumps({**head, "kernel": name[:120], "ms": ms,
-                              "launches": n, "share": ms / total_ms}),
-                  flush=True)
+        report(prof, wall, {"device": smi, **head,
+                            "n_blocks": FULL.evoformer.n_blocks,
+                            "n_recycle": FULL.n_recycle}, latency, extra,
+               args.top)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Synthetic AlphaFold features, deterministic from a seed.
+"""Synthetic data, deterministic from a seed: decoder-LM token batches and
+AlphaFold features.
 
-The port's own numpy copy of the reference generator (``protein_batches``):
-for a seed it yields byte-identical arrays. ``n_real`` pads a shorter
+The port's own numpy copies of the reference generators (``lm_batches``,
+``protein_batches``): for a seed they yield byte-identical arrays. ``n_real`` pads a shorter
 protein: residues from ``n_real`` on are padding, with ``seq_mask``,
 ``msa_mask`` and ``bert_mask`` zeroed there (so no loss lands on padding);
 the random draws are the same as unpadded, so every array but those three
@@ -13,6 +14,29 @@ from dataclasses import dataclass, fields
 from typing import Iterator
 
 import numpy as np
+
+@dataclass(frozen=True)
+class LMBatch:
+    tokens: np.ndarray   # (B, S) int32
+    targets: np.ndarray  # (B, S) int32 (next-token)
+    mask: np.ndarray     # (B, S) float32 loss mask
+
+
+def lm_batches(*, vocab: int, batch: int, seq: int,
+               seed: int = 0) -> Iterator[LMBatch]:
+    """Zipf-distributed token stream (rank-frequency exponent 1.1)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks**1.1
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs).astype(np.int32)
+        yield LMBatch(
+            tokens=toks[:, :-1],
+            targets=toks[:, 1:],
+            mask=np.ones((batch, seq), np.float32),
+        )
+
 
 N_AA = 21          # 20 amino acids + gap/unknown
 N_MSA_TOK = 23     # AlphaFold MSA alphabet (aa + gap + mask)

@@ -47,6 +47,29 @@ def dense(p: Params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return y
 
 
+def init_embedding(generator: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32) -> Params:
+    """A (vocab, d) table of N(0, 0.02²) draws."""
+    return {"table": torch.randn((vocab, d), generator=generator,
+                                 dtype=dtype) * 0.02}
+
+
+def embed(p: Params, ids: torch.Tensor,
+          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The rows of the table (cast to ``compute_dtype``) at ``ids``."""
+    return p["table"].to(compute_dtype)[ids]
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def cast_tree(params, dtype):
+    """Every floating leaf cast to ``dtype``; other leaves as they are."""
+    return tree_map(
+        lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over trees of one structure (dicts and lists
     of tensors)."""

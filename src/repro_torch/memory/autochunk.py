@@ -1,7 +1,13 @@
-"""AutoChunk: the activation-memory planner of the Evoformer's chunk knobs.
+"""AutoChunk: the activation-memory planner of the Evoformer's chunk knobs,
+and the serving engine's decoder block planner.
 
-The port's copy of the Evoformer half of the reference's
-``memory/autochunk.py``. Given the static shapes of a forward, the compute
+The port's copy of the reference's ``memory/autochunk.py``. The decoder
+half (``plan_decoder_blocks``, ``check_decoder_admission``,
+``decoder_attention_bytes``) is the reference's, term for term; its
+default budget is the device's own (``device.hbm_budget_bytes``), where
+the reference's is its TPU's HBM.
+
+The Evoformer half: given the static shapes of a forward, the compute
 dtype, the branch each site takes and a device-memory budget, it picks
 
   * ``inference_chunk`` — paper §V.C group chunking of the attention sites,
@@ -407,3 +413,104 @@ def resolve_evoformer_config(cfg, *, batch: int, n_seq: int, n_res: int,
     return apply_plan(cfg, evoformer_chunk_plan(
         cfg, batch=batch, n_seq=n_seq, n_res=n_res, dap=dap,
         budget_bytes=budget_bytes, device=device, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Decoder / serving planner
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DecoderPlan:
+    attn_q_block: int
+    attn_kv_block: int
+    est_bytes: int
+    budget_bytes: int
+    fits: bool
+
+
+def decoder_attention_bytes(cfg, *, n_slots: int, max_seq: int,
+                            q_block: int, kv_block: int,
+                            seq_len: int | None = None) -> int:
+    """Dominant serving-time bytes: the batched KV cache, the prefill's
+    fp32 probabilities block, its bf16 activations and the logits. cfg is a
+    ModelConfig. ``seq_len`` bounds the prefill terms to a prompt's length
+    (admission queries); None models the worst case (``max_seq``)."""
+    hd = cfg.resolved_head_dim
+    dt = 1 if getattr(cfg, "kv_cache_int8", False) else 2
+    s = min(seq_len or max_seq, max_seq)
+    cache = cfg.n_layers * n_slots * max_seq * 2 * cfg.n_kv * hd * dt
+    qb = min(q_block or s, s)
+    kvb = min(kv_block or s, s)
+    probs = cfg.n_heads * qb * kvb * 4
+    acts = 3 * s * cfg.n_heads * hd * 2
+    logits = n_slots * cfg.vocab * 4
+    return cache + probs + acts + logits
+
+
+@dataclass(frozen=True)
+class AdmissionCheck:
+    """Result of a serving-engine admission query (see
+    ``check_decoder_admission``)."""
+
+    fits: bool
+    est_bytes: int
+    budget_bytes: int
+    seq_len: int
+
+    def describe(self) -> str:
+        return (f"seq_len={self.seq_len} est={self.est_bytes >> 20}MB "
+                f"budget={self.budget_bytes >> 20}MB fits={self.fits}")
+
+
+_MIN_BLOCK = 32   # the most-shrunk attention block plan_decoder_blocks tries
+
+
+def check_decoder_admission(cfg, *, n_slots: int, max_seq: int,
+                            seq_len: int | None = None,
+                            budget_bytes: int | None = None,
+                            device=None) -> AdmissionCheck:
+    """Can a request of ``seq_len`` tokens run in an engine of (n_slots,
+    max_seq) within ``budget_bytes`` (None: ``hbm_budget_bytes(device)``)?
+    The engine can always shrink its attention blocks but not its KV
+    cache, so a request is admissible iff the most-shrunk block plan
+    fits. Pure Python over static shapes."""
+    if budget_bytes is None:
+        budget_bytes = hbm_budget_bytes(device)
+    s = min(seq_len or max_seq, max_seq)
+    est = decoder_attention_bytes(
+        cfg, n_slots=n_slots, max_seq=max_seq,
+        q_block=min(_MIN_BLOCK, s), kv_block=min(_MIN_BLOCK, s),
+        seq_len=s)
+    return AdmissionCheck(est <= budget_bytes, est, budget_bytes, s)
+
+
+def plan_decoder_blocks(cfg, *, n_slots: int, max_seq: int,
+                        budget_bytes: int | None = None, device=None):
+    """The serving engine's AutoChunk: keep the configured attention blocks
+    when they fit the budget (None: ``hbm_budget_bytes(device)``), else
+    shrink, the KV block first, then the q block. Returns (ModelConfig,
+    DecoderPlan)."""
+    if budget_bytes is None:
+        budget_bytes = hbm_budget_bytes(device)
+    q_opts = [cfg.attn_q_block] + [b for b in (256, 128, 64, 32)
+                                   if not cfg.attn_q_block
+                                   or b < cfg.attn_q_block]
+    kv_opts = [cfg.attn_kv_block] + [b for b in (512, 256, 128, 64, 32)
+                                     if not cfg.attn_kv_block
+                                     or b < cfg.attn_kv_block]
+    best = None
+    for qb in q_opts:              # outer: shrink q last
+        for kvb in kv_opts:        # inner: shrink kv first
+            e = decoder_attention_bytes(cfg, n_slots=n_slots,
+                                        max_seq=max_seq, q_block=qb,
+                                        kv_block=kvb)
+            if best is None or e < best[0]:
+                best = (e, qb, kvb)
+            if e <= budget_bytes:
+                plan = DecoderPlan(qb, kvb, e, budget_bytes, fits=True)
+                return dataclasses.replace(
+                    cfg, attn_q_block=qb, attn_kv_block=kvb), plan
+    e, qb, kvb = best
+    plan = DecoderPlan(qb, kvb, e, budget_bytes, fits=False)
+    return dataclasses.replace(cfg, attn_q_block=qb, attn_kv_block=kvb), plan

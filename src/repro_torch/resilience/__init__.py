@@ -68,9 +68,10 @@ see ``make_train_step(guard_nonfinite=...)``.
 
 This package imports nothing of torch: scoping works before a device is
 touched, and the injector is usable from launchers and subprocess scripts.
-It is the port's copy of the reference's package. The port has no serving
-engine yet (ROADMAP.md Queue 1 item 5), so of the sites above only
-``checkpoint.save`` fires in it so far (``train/checkpoint.py``).
+It is the port's copy of the reference's package. Every site above fires
+in the port: ``prefill`` and ``decode`` in the LM serving engine
+(``serving/engine.py``, ROADMAP.md Queue 1 item 5), ``checkpoint.save`` in
+``train/checkpoint.py``.
 """
 from repro_torch.resilience.errors import (  # noqa: F401
     AdmissionError,

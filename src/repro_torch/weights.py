@@ -5,9 +5,15 @@ nested dicts of numpy arrays, ``params_from_numpy`` turns them into the
 port's parameters: the same keys and layouts, except that the Evoformer
 stack's leading layer axis (``init_evoformer_stack`` in the reference)
 becomes a list of per-block dicts. ``params_to_numpy`` is the inverse.
+``decoder_params_from_numpy`` / ``decoder_params_to_numpy`` do the same for
+a decoder LM: the reference stacks each stage's layers on a leading axis
+(``params["stages"][i]``, and each stage of a KV cache), the port keeps a
+list of per-layer dicts.
 
 ``randomize_tree`` overwrites every leaf with seeded values, so that no
-zero-initialised output projection hides the computation behind it.
+zero-initialised output projection hides the computation behind it;
+``random_params_like`` draws a tree of the same rules on a device, for
+full-width models whose numpy draw would take too long.
 """
 from __future__ import annotations
 
@@ -20,16 +26,23 @@ _STACKED = "evoformer"
 
 
 def _to_torch(tree, device, dtype):
+    """Floating leaves become ``dtype``; integer leaves keep theirs."""
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree, dtype=np.float32)).to(device=device,
-                                                                dtype=dtype)
+    a = np.asarray(tree)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a).to(device)
+    return torch.as_tensor(np.array(a, dtype=np.float32)).to(device=device,
+                                                             dtype=dtype)
 
 
 def _to_numpy(tree):
+    """Floating leaves as fp32 numpy arrays; integer leaves keep theirs."""
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
-    return tree.detach().to("cpu", torch.float32).numpy()
+    if tree.is_floating_point():
+        return tree.detach().to("cpu", torch.float32).numpy()
+    return tree.detach().cpu().numpy()
 
 
 def _unstack(tree, i):
@@ -82,12 +95,15 @@ def randomize_tree(tree, seed: int):
     a weight ``w`` (d_in, d_out), stacked or not, gets N(0, 1)/sqrt(d_in);
     a LayerNorm ``gamma`` gets 1 + 0.1 N(0, 1); every other leaf (biases,
     ``beta``, point weights) 0.1 N(0, 1). Leaves are visited in sorted key
-    order, so the result depends on the seed and the tree's shape only."""
+    order (a list, such as a decoder's stages, in its order), so the
+    result depends on the seed and the tree's shape only."""
     rng = np.random.default_rng(seed)
 
     def walk(node, key):
         if isinstance(node, dict):
             return {k: walk(node[k], k) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(n, key) for n in node]
         shape = np.shape(node)
         z = rng.standard_normal(shape).astype(np.float32)
         if key == "w":
@@ -97,3 +113,68 @@ def randomize_tree(tree, seed: int):
         return np.float32(0.1) * z
 
     return walk(tree, None)
+
+
+# ---------------------------------------------------------------------------
+# Decoder LMs
+# ---------------------------------------------------------------------------
+
+def decoder_params_from_numpy(tree: dict, device=None,
+                              dtype: torch.dtype = torch.float32) -> dict:
+    """A reference decoder tree (``init_model``'s, numpy leaves) -> the
+    port's, each stage a list of per-layer dicts, on ``device`` (None: the
+    card, ``"cpu"`` the opt-in). Floating leaves become ``dtype``, integer
+    leaves keep theirs. A reference KV cache (``init_cache``: a list of
+    stacked stages) converts the same way under the key ``"stages"``:
+    ``decoder_params_from_numpy({"stages": cache}, ...)["stages"]``."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in tree.items():
+        if k == "stages":
+            out[k] = [[_to_torch(_unstack(stage, i), device, dtype)
+                       for i in range(_n_layers(stage))] for stage in v]
+        else:
+            out[k] = _to_torch(v, device, dtype)
+    return out
+
+
+def decoder_params_to_numpy(params: dict) -> dict:
+    """The inverse of ``decoder_params_from_numpy``: floating leaves as
+    fp32 numpy arrays, each stage's layers stacked on a leading axis."""
+    out = {}
+    for k, v in params.items():
+        if k == "stages":
+            out[k] = [_stack([_to_numpy(layer) for layer in stage])
+                      for stage in v]
+        else:
+            out[k] = _to_numpy(v)
+    return out
+
+
+def random_params_like(skeleton, seed: int, device=None,
+                       dtype: torch.dtype = torch.float32):
+    """A tree of ``skeleton``'s structure and shapes (its leaves may lie on
+    the ``meta`` device) drawn on ``device`` from a generator seeded with
+    ``seed``, by ``randomize_tree``'s rules: a weight ``w`` N(0, 1) /
+    sqrt(d_in), a ``gamma`` 1 + 0.1 N(0, 1), every other leaf 0.1 N(0, 1);
+    leaves visited in sorted key order, lists in order. Not the numpy
+    draw's values: the same distribution, drawn where the model runs."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(n, key) for n in node]
+        z = torch.randn(tuple(node.shape), generator=gen, device=device,
+                        dtype=torch.float32)
+        if key == "w":
+            z = z / float(np.sqrt(node.shape[-2]))
+        elif key == "gamma":
+            z = 1.0 + 0.1 * z
+        else:
+            z = 0.1 * z
+        return z.to(dtype)
+
+    return walk(skeleton, None)

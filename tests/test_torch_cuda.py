@@ -919,3 +919,66 @@ def test_kernel_shard_of_rows_is_the_whole_calls_rows(gen, kernel, n):
     for rank in range(n):
         rows = slice(rank * size, (rank + 1) * size)
         assert torch.equal(call(rows), whole[:, rows]), rank
+
+
+# The decoder LMs (the LM serving engine): musicgen-medium's every
+# LayerNorm is K1 at C = 1536, rows of a prefill (1, S, 1536) and of the
+# batched decode (4, 1, 1536). bf16 takes the vector kernel (32 lanes of 6
+# vectors a row), fp32 the loop (12 vectors a lane is over the envelope).
+@pytest.mark.parametrize("dtype,tol,vector", [(torch.float32, 1e-5, False),
+                                              (torch.bfloat16, 1e-2, True)])
+@pytest.mark.parametrize("shape", [(1, 32, 1536), (1, 256, 1536),
+                                   (4, 1, 1536)])
+def test_layer_norm_kernel_at_the_decoders_width(gen, shape, dtype, tol,
+                                                  vector):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(1536, generator=gen, device="cuda") * 0.1 + 1
+    beta = torch.randn(1536, generator=gen, device="cuda") * 0.1
+    assert (ln_partition(1536, x.element_size()) == (32, 6, 8)) == vector
+    assert (ln_partition(1536, x.element_size()) is None) == (not vector)
+    _build.reset_launches()
+    got = ops.layer_norm(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["layer_norm"] == 1
+    _close(got, ref.layer_norm_ref(x, gamma, beta), tol)
+
+
+def test_lm_engine_on_the_card_gives_the_cpu_fp32_greedy_tokens(gen):
+    """musicgen-medium REDUCED served on the card (bf16, K1 at every
+    LayerNorm) against sequential greedy decoding with the port's fp32
+    ``model_forward`` on the CPU on the same weights: the same tokens, up
+    to the first step whose two candidates are a bf16 near tie of the fp32
+    logits (within 2e-2·max(1, max|logits|); the sequences then go on from
+    different tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.params import tree_map
+    from repro_torch.models.decoder import init_model, model_forward
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.weights import random_params_like
+
+    cfg = get_config("musicgen-medium", reduced_variant=True)
+    with torch.device("meta"):
+        skeleton = init_model(torch.Generator(), cfg)
+    cpu = random_params_like(skeleton, 3, device="cpu")
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=torch.Generator()
+                             .manual_seed(n)).numpy() for n in (5, 9, 12)]
+    eng = ServingEngine(card, cfg, n_slots=2, max_seq=32)
+    _build.reset_launches()
+    reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    eng.run()
+    assert _build.LAUNCHES["layer_norm"] > 0
+    for prompt, req in zip(prompts, reqs):
+        assert req.status == "done" and len(req.generated) == 6
+        toks = list(prompt)
+        for i, tok in enumerate(req.generated):
+            logits = model_forward(cpu, torch.as_tensor(toks)[None], cfg,
+                                   compute_dtype=torch.float32)["logits"]
+            logits = logits[0, -1]
+            want = int(torch.argmax(logits))
+            if tok != want:
+                gap = float(logits[want] - logits[tok])
+                assert gap <= 2e-2 * max(1.0, logits.abs().max().item()), (
+                    i, tok, want, gap)
+                break
+            toks.append(tok)
