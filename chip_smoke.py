@@ -107,16 +107,30 @@ Phases, each printing JSON lines:
                plan as a canary, after an uncounted warm-up request: every
                request done, K1's launches per prefill and per decode call
                97 under the default plan and 0 for the canary and qwen2, no
-               other kernel, the bf16 prefill logits of the default plan
-               within 2e-2 of the oracle's; seconds per prefill, decode
-               tokens/s, engine steps, peak memory beside the planner's
-               model and the weights, the block plan, greedy agreement with
-               sequential ``model_forward`` (printed, not gated); then
-               musicgen-medium cut to 4 layers in fp32 (K1's loop path): a
-               prefill and 4 decode steps, default plan against oracle and
-               the cache's logits against a recompute, within 1e-3. The
-               survey (3) records K1's calls at this phase's shapes, so
-               phase 4 checks and times K1 there.
+               other kernel; musicgen-medium's bf16 prefill logits of the
+               default plan within 2e-2·max(1, max|oracle|) of the
+               oracle's on its first 2 layers (the same weights), the
+               plain LayerNorm with beta left out of one norm rejected,
+               the 48-layer gap and the oracle's bf16-vs-fp32 gap printed;
+               seconds per prefill, decode tokens/s, engine steps, peak
+               memory beside the planner's model and the weights, the
+               block plan, greedy agreement with sequential
+               ``model_forward`` (printed, not gated); then musicgen-medium
+               cut to 4 layers in fp32 (K1's loop path): a prefill and 4
+               decode steps, default plan against oracle and the cache's
+               logits against a recompute, within 1e-3. Then the MoE, MLA,
+               hymba and xLSTM kinds at full width (``LM_FAMILIES``):
+               xlstm-125m and hymba-1.5b (max_seq 1024, its window) whole,
+               deepseek-moe-16b cut to 1 dense + 3 MoE layers,
+               deepseek-v2-236b to 1 dense + 1 MoE layer, each serving the
+               same eight requests: every request done, no kernel, a
+               second run the same tokens; cut to one layer of each kind,
+               fp32, a 128-token prefill and 4 decode steps against a
+               recompute (MoE capacity raised to the tokens of a call) and
+               a 32-token prefill and 2 steps against the port on the
+               host's CPU, within 1e-3 (the smallest router top-k margin
+               printed). The survey (3) records K1's calls at this phase's
+               shapes, so phase 4 checks and times K1 there.
 The survey (3) also records every kernel call of one training step cut to
 one block, under both plans, so phase 4 checks the training kernels at the
 training shapes, and the DAP and TP phases' calls at their shapes.
@@ -2804,9 +2818,24 @@ LM_SLOTS, LM_MAX_SEQ, LM_NEW = 4, 512, 32
 # fourth runs under the oracle plan as a canary beside the others.
 LM_PROMPT_LENS = (256, 32, 128, 64, 256, 32, 128, 64)
 LM_CANARY = 3
+# The bf16 plan gap (default plan, K1, against oracle) is gated on the
+# model cut to LM_BF16_LAYERS layers at full width, under the per-module
+# bf16 rule; the whole model's reading is printed beside the oracle's own
+# bf16-vs-fp32 gap (ROADMAP.md C4).
 LM_BF16_TOL = 2e-2
+LM_BF16_LAYERS = 2
 LM_FP32_TOL = 1e-3
 LM_FP32_LAYERS = 4
+# The MoE, MLA, hymba and xLSTM kinds at full width: (arch, the stages run
+# where one card or the phase's time cuts the depth, max_seq). hymba's
+# sliding window is 1024 tokens, and max_seq must reach it (ROADMAP.md R7).
+LM_FAMILIES = (
+    ("xlstm-125m", None, LM_MAX_SEQ),
+    ("hymba-1.5b", None, 1024),
+    ("deepseek-moe-16b", (("attn+dense", 1), ("attn+moe", 3)), LM_MAX_SEQ),
+    ("deepseek-v2-236b", (("mla+dense", 1), ("mla+moe", 1)), LM_MAX_SEQ),
+)
+LM_FAMILY_PREFILL, LM_FAMILY_STEPS, LM_FAMILY_CPU_PROMPT = 128, 4, 32
 
 
 def lm_prompts(cfg) -> list:
@@ -2931,31 +2960,14 @@ def _shared_lead(a: list, b: list) -> int:
     return n
 
 
-def lm_serve_one(torch, arch: str, k: int) -> dict:
-    """``ServingEngine`` serving ``arch`` at full width: the phase's eight
-    requests (the canary under the oracle plan), after an uncounted
-    warm-up request; then the bf16 prefill logits under both plans.
-    Returns the main path's launch counts."""
-    from repro_torch.configs import get_config
-    from repro_torch.exec.plan import use_plan
+def _lm_engine_run(torch, params, cfg, max_seq: int, prompts: list):
+    """One ``ServingEngine`` serving the phase's requests (the canary under
+    the oracle plan), every prefill and decode call timed. Returns
+    (engine, requests, call record, launches, peak bytes, seconds)."""
     from repro_torch.kernels import _build
-    from repro_torch.memory.autochunk import decoder_attention_bytes
-    from repro_torch.models.decoder import model_forward
     from repro_torch.serving.engine import ServingEngine
 
-    t0 = time.perf_counter()
-    cfg = get_config(arch)
-    params = lm_params(torch, cfg, SEED + 40 + k)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompts = lm_prompts(cfg)
-    layer_norms = 2 * cfg.n_layers + 1 if cfg.norm == "layernorm" else 0
-    warm = ServingEngine(params, cfg, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
-                         plan=plan_of("default"))
-    warm.submit(prompts[1], max_new_tokens=2)
-    warm.run()                                  # cuBLAS, pools: not counted
-    del warm
-    engine = ServingEngine(params, cfg, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+    engine = ServingEngine(params, cfg, n_slots=LM_SLOTS, max_seq=max_seq,
                            plan=plan_of("default"))
     record = []
     torch.cuda.synchronize()
@@ -2968,23 +2980,130 @@ def lm_serve_one(torch, arch: str, k: int) -> dict:
                               else None) for i, p in enumerate(prompts)]
         engine.run()
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1
-    launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    ok_reqs = all(r.status == "done" and len(r.generated) == LM_NEW
-                  and all(0 <= t < cfg.vocab for t in r.generated)
-                  for r in reqs)
-    want = {"default": layer_norms, "oracle": 0}
-    bad_calls = [c for c in record if c[3] != want[c[1]]]
-    others = {n: v for n, v in launches.items() if n != "layer_norm" and v}
+    return (engine, reqs, record, dict(_build.LAUNCHES),
+            torch.cuda.max_memory_allocated(), time.perf_counter() - t1)
+
+
+def _lm_warm(params, cfg, max_seq: int, prompt) -> None:
+    """An uncounted request (cuBLAS handles, the caching allocator)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    warm = ServingEngine(params, cfg, n_slots=LM_SLOTS, max_seq=max_seq,
+                         plan=plan_of("default"))
+    warm.submit(prompt, max_new_tokens=2)
+    warm.run()
+
+
+def _lm_stats(cfg, engine, reqs, record, max_seq: int, peak: int) -> dict:
+    """The printed numbers of one engine run: seconds per prefill by
+    prompt length, decode seconds, tokens and tokens/s, the median decode
+    step, peak memory beside the weights and the planner's model, and the
+    block plan."""
+    from repro_torch.memory.autochunk import decoder_attention_bytes
+
     prefills = [c for c in record if c[0] == "prefill"]
     decodes = [c for c in record if c[0] == "decode"]
     decode_s = sum(c[4] for c in decodes)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
-    plan = engine.block_plan
     model_bytes = decoder_attention_bytes(
-        engine.cfg, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+        engine.cfg, n_slots=LM_SLOTS, max_seq=max_seq,
         q_block=engine.cfg.attn_q_block, kv_block=engine.cfg.attn_kv_block)
+    return {
+        "n_slots": LM_SLOTS, "max_seq": max_seq,
+        "prompt_lens": list(LM_PROMPT_LENS), "new_tokens": LM_NEW,
+        "canary": LM_CANARY, "statuses": [r.status for r in reqs],
+        "engine_steps": engine._step_count,
+        "prefill_s": {str(n): statistics.median(
+            c[4] for c in prefills if c[2] == n and c[1] == "default")
+            for n in sorted(set(LM_PROMPT_LENS))},
+        "decode_calls": len(decodes), "decode_s": decode_s,
+        "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "decode_step_ms_median": 1e3 * statistics.median(
+            c[4] for c in decodes),
+        "peak_memory_bytes": peak, "param_bytes": engine._param_bytes,
+        "modelled_bytes": model_bytes,
+        "modelled_plus_weights_bytes": model_bytes + engine._param_bytes,
+        "block_plan": dataclasses.asdict(engine.block_plan)}
+
+
+def _requests_ok(cfg, reqs) -> bool:
+    """Every request done (a slot quarantined as non-finite fails), with
+    LM_NEW tokens in [0, vocab)."""
+    return all(r.status == "done" and len(r.generated) == LM_NEW
+               and all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs)
+
+
+def _cut_layers(params, cfg, n_layers: int):
+    """The first ``n_layers`` layers of a one-stage model, sharing the
+    weights."""
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    return {**params, "stages": [params["stages"][0][:n_layers]]}, cut
+
+
+def _prefill_logits(torch, params, cfg, prompt, plan: str,
+                    dtype=None) -> "torch.Tensor":
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.models.decoder import model_forward
+
+    with use_plan(plan_of(plan)), torch.no_grad():
+        return model_forward(params, prompt, cfg, mode="prefill",
+                             compute_dtype=dtype or torch.bfloat16)["logits"]
+
+
+def lm_bf16_gate(torch, params, cfg, prompt) -> dict:
+    """The bf16 plan gap, default plan (K1) against oracle: gated on the
+    model cut to LM_BF16_LAYERS layers (full width, the same weights) at
+    2e-2·max(1, max|oracle|); the cut's control, the plain LayerNorm with
+    its ``beta`` left out in the first layer's first norm, must exceed the
+    limit. The whole model's gap and the oracle's own bf16-vs-fp32 gap are
+    printed, not gated (ROADMAP.md C4)."""
+    cut_params, cut = _cut_layers(params, cfg, LM_BF16_LAYERS)
+    logits = {n: _prefill_logits(torch, cut_params, cut, prompt, n)
+              for n in ("default", "oracle")}
+    layer0 = dict(cut_params["stages"][0][0])
+    layer0["ln1"] = {**layer0["ln1"],
+                     "beta": torch.zeros_like(layer0["ln1"]["beta"])}
+    no_beta = {**cut_params, "stages": [[layer0]
+                                        + cut_params["stages"][0][1:]]}
+    control = _prefill_logits(torch, no_beta, cut, prompt, "oracle")
+    whole = {n: _prefill_logits(torch, params, cfg, prompt, n)
+             for n in ("default", "oracle")}
+    whole_f32 = _prefill_logits(torch, params, cfg, prompt, "oracle",
+                                torch.float32)
+    return {
+        "layers": LM_BF16_LAYERS,
+        "default_vs_oracle": rel_err(logits["default"], logits["oracle"])[1],
+        "control_no_beta_vs_oracle": rel_err(control, logits["oracle"])[1],
+        "tol": LM_BF16_TOL,
+        "whole_model_default_vs_oracle": rel_err(whole["default"],
+                                                 whole["oracle"])[1],
+        "whole_model_oracle_bf16_vs_fp32": rel_err(whole["oracle"],
+                                                   whole_f32)[1]}
+
+
+def lm_serve_one(torch, arch: str, k: int) -> dict:
+    """``ServingEngine`` serving ``arch`` at full width: the phase's eight
+    requests (the canary under the oracle plan), after an uncounted
+    warm-up request; then the bf16 plan gate (``lm_bf16_gate``). Returns
+    the main path's launch counts."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    params = lm_params(torch, cfg, SEED + 40 + k)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg)
+    layer_norms = 2 * cfg.n_layers + 1 if cfg.norm == "layernorm" else 0
+    _lm_warm(params, cfg, LM_MAX_SEQ, prompts[1])
+    engine, reqs, record, launches, peak, run_s = _lm_engine_run(
+        torch, params, cfg, LM_MAX_SEQ, prompts)
+    ok_reqs = _requests_ok(cfg, reqs)
+    want = {"default": layer_norms, "oracle": 0}
+    bad_calls = [c for c in record if c[3] != want[c[1]]]
+    others = {n: v for n, v in launches.items() if n != "layer_norm" and v}
 
     # Greedy agreement (printed, not gated): the first default request
     # against sequential model_forward, the canary against a default-plan
@@ -2994,33 +3113,14 @@ def lm_serve_one(torch, arch: str, k: int) -> dict:
             torch, params, cfg, prompts[0], LM_NEW, "default")),
         "canary_vs_default_plan": _shared_lead(reqs[LM_CANARY].generated, _greedy(
             torch, params, cfg, prompts[LM_CANARY], LM_NEW, "default"))}
-    # bf16 prefill logits, default plan against oracle.
     prompt = torch.as_tensor(prompts[0], dtype=torch.long, device="cuda")[None]
-    logits = {}
-    with torch.no_grad():
-        for name in ("default", "oracle"):
-            with use_plan(plan_of(name)):
-                logits[name] = model_forward(params, prompt, cfg,
-                                             mode="prefill",
-                                             max_cache_len=LM_MAX_SEQ)["logits"]
-    _, rel = rel_err(logits["default"], logits["oracle"])
+    gate = lm_bf16_gate(torch, params, cfg, prompt) if layer_norms else None
     row = {"phase": "lm serve", "arch": arch, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "norm": cfg.norm, "vocab": cfg.vocab,
            "weights": f"random on the card, seed {SEED + 40 + k}, fp32, "
                       "bf16 compute", "init_s": init_s,
-           "n_slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
-           "prompt_lens": list(LM_PROMPT_LENS), "new_tokens": LM_NEW,
-           "canary": LM_CANARY, "statuses": [r.status for r in reqs],
-           "requests_ok": ok_reqs, "engine_steps": engine._step_count,
-           "run_s": run_s, "prefill_s": {
-               str(n): statistics.median(c[4] for c in prefills
-                                         if c[2] == n and c[1] == "default")
-               for n in sorted(set(LM_PROMPT_LENS))},
-           "decode_calls": len(decodes), "decode_s": decode_s,
-           "decode_tokens": decode_tokens,
-           "decode_tokens_per_s": decode_tokens / decode_s,
-           "decode_step_ms_median": 1e3 * statistics.median(
-               c[4] for c in decodes),
+           "requests_ok": ok_reqs, "run_s": run_s,
+           **_lm_stats(cfg, engine, reqs, record, LM_MAX_SEQ, peak),
            "k1_launches_per_call": {
                f"{kind} {p}": sorted({c[3] for c in record
                                       if c[0] == kind and c[1] == p})
@@ -3028,12 +3128,7 @@ def lm_serve_one(torch, arch: str, k: int) -> dict:
                                                            "oracle")},
            "k1_expected": want, "k1_launches": launches.get("layer_norm", 0),
            "other_kernel_launches": others,
-           "peak_memory_bytes": peak, "param_bytes": engine._param_bytes,
-           "modelled_bytes": model_bytes,
-           "modelled_plus_weights_bytes": model_bytes + engine._param_bytes,
-           "block_plan": dataclasses.asdict(plan),
-           "greedy_agreement": agree,
-           "prefill_logits_default_vs_oracle": rel, "tol": LM_BF16_TOL}
+           "greedy_agreement": agree, "bf16_plan_gate": gate}
     emit(row)
     if not ok_reqs:
         fail(f"lm serve {arch}: a request did not end done with {LM_NEW} "
@@ -3043,10 +3138,186 @@ def lm_serve_one(torch, arch: str, k: int) -> dict:
              f"or another kernel launched: {others}")
     if layer_norms and not launches.get("layer_norm"):
         fail(f"lm serve {arch}: K1 never launched")
-    if rel > LM_BF16_TOL:
-        fail(f"lm serve {arch}: bf16 prefill logits default vs oracle "
-             f"{rel:.3g} > {LM_BF16_TOL}")
-    del engine, params, logits
+    if gate and not (gate["default_vs_oracle"] <= LM_BF16_TOL
+                     < gate["control_no_beta_vs_oracle"]):
+        fail(f"lm serve {arch}: the {LM_BF16_LAYERS}-layer bf16 plan gap "
+             f"{gate['default_vs_oracle']:.3g} or its control "
+             f"{gate['control_no_beta_vs_oracle']:.3g} against "
+             f"{LM_BF16_TOL}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {n: launches.get(n, 0) for n in TOL}
+
+
+def _one_layer_of_each_kind(params, cfg):
+    """The model cut to the first layer of each of its kinds, in the
+    order the kinds first appear, sharing the weights."""
+    kinds, stages = [], []
+    for i, (kind, _) in enumerate(cfg.resolved_stages):
+        if kind not in kinds:
+            kinds.append(kind)
+            stages.append([params["stages"][i][0]])
+    cut = dataclasses.replace(cfg, stages=tuple((k, 1) for k in kinds),
+                              n_layers=len(kinds))
+    return {**params, "stages": stages}, cut
+
+
+@contextlib.contextmanager
+def _router_margins(margins: list):
+    """Within the scope, each MoE router call appends its smallest top-k
+    margin (the k-th largest probability less the next) to ``margins``."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+
+    def route(p, xf, cfg):
+        out = orig(p, xf, cfg)
+        top = out[0].topk(cfg.top_k + 1, dim=-1).values
+        margins.append((top[:, -2] - top[:, -1]).min().item())
+        return out
+
+    moe.route = route
+    try:
+        yield margins
+    finally:
+        moe.route = orig
+
+
+def _prefill_and_decode(torch, params, cfg, prompt, steps: int, toks=None):
+    """fp32 logits of the prompt's last position and of ``steps`` decode
+    steps from the prefill's cache: (B, steps + 1, vocab), and the tokens
+    fed (the greedy tokens of the logits where ``toks`` is None)."""
+    from repro_torch.models.decoder import model_forward
+
+    s = prompt.shape[1]
+    f32 = dict(compute_dtype=torch.float32)
+    with torch.no_grad():
+        out = model_forward(params, prompt, cfg, mode="prefill",
+                            max_cache_len=s + steps, **f32)
+        logits, cache = [out["logits"][:, -1]], out["cache"]
+        toks = list(toks) if toks is not None else []
+        for i in range(steps):
+            if len(toks) <= i:
+                toks.append(int(torch.argmax(logits[-1][0])))
+            out = model_forward(params, prompt.new_tensor([[toks[i]]]), cfg,
+                                mode="decode", cache=cache,
+                                lengths=prompt.new_tensor([s + i]), **f32)
+            cache = out["cache"]
+            logits.append(out["logits"][:, -1])
+    return torch.stack(logits, dim=1), toks
+
+
+def lm_family_fp32(torch, arch: str, params, cfg) -> dict:
+    """Two fp32 points on ``arch`` cut to one layer of each kind at full
+    width: (a) a LM_FAMILY_PREFILL-token prefill and LM_FAMILY_STEPS decode
+    steps against a recompute of the whole sequence, MoE capacity raised
+    to the tokens of each call; (b) a LM_FAMILY_CPU_PROMPT-token prefill
+    and 2 decode steps at the default capacity, the card against the port
+    on the host's CPU. Both at LM_FP32_TOL."""
+    from repro_torch.layers.params import tree_map
+    from repro_torch.models.decoder import model_forward
+
+    cut_params, cut = _one_layer_of_each_kind(params, cfg)
+    prompts = lm_prompts(cut)
+    row = {"kinds": [k for k, _ in cut.resolved_stages], "tol": LM_FP32_TOL}
+    # (a) Capacity couples the tokens of a call: only at capacity = n is a
+    # decode step the recompute's routing. capacity_factor = E makes the
+    # capacity E·n·k/E >= n for every call.
+    full_cap = cut
+    if cut.moe:
+        full_cap = dataclasses.replace(cut, moe=dataclasses.replace(
+            cut.moe, capacity_factor=float(cut.moe.n_experts)))
+        row["recompute_capacity_factor"] = full_cap.moe.capacity_factor
+        row["recompute_capacity_note"] = (
+            "raised from the default so that capacity equals the tokens of "
+            "every call: no token is dropped, and a decode step routes as "
+            "the recompute does")
+    prompt = torch.as_tensor(
+        next(iter(p for p in prompts if len(p) == LM_FAMILY_PREFILL)),
+        dtype=torch.long, device="cuda")[None]
+    s = prompt.shape[1]
+    steps, toks = _prefill_and_decode(torch, cut_params, full_cap, prompt,
+                                      LM_FAMILY_STEPS)
+    with torch.no_grad():
+        full = model_forward(cut_params, torch.cat(
+            [prompt, prompt.new_tensor([toks])], dim=1), full_cap,
+            compute_dtype=torch.float32)["logits"][:, s - 1:]
+    row["prefill_len"], row["decode_steps"] = s, LM_FAMILY_STEPS
+    row["cache_vs_recompute"] = rel_err(steps, full)[1]
+    # (b) The card against the host, the same weights, default capacity.
+    prompt = torch.as_tensor(
+        next(iter(p for p in prompts if len(p) == LM_FAMILY_CPU_PROMPT)),
+        dtype=torch.long, device="cuda")[None]
+    margins = []
+    with _router_margins(margins):
+        card, toks = _prefill_and_decode(torch, cut_params, cut, prompt, 2)
+    torch.cuda.synchronize()
+    host = tree_map(lambda t: t.cpu(), cut_params)
+    cpu, _ = _prefill_and_decode(torch, host, cut, prompt.cpu(), 2, toks)
+    del host
+    row["cpu_prompt_len"] = prompt.shape[1]
+    row["card_vs_cpu"] = rel_err(card.cpu(), cpu)[1]
+    row["router_min_topk_margin"] = min(margins) if margins else None
+    row["ok"] = (row["cache_vs_recompute"] <= LM_FP32_TOL
+                 and row["card_vs_cpu"] <= LM_FP32_TOL)
+    return row
+
+
+def lm_family_one(torch, arch: str, stages, max_seq: int, k: int) -> dict:
+    """``arch`` (the MoE, MLA, hymba or xLSTM kinds) at full width, its
+    depth cut to ``stages`` where given: the phase's eight requests after
+    a warm-up, checked (all done, no kernel launched), served again to the
+    same tokens, then the fp32 points (``lm_family_fp32``). Returns the
+    main path's launch counts."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if stages is not None:
+        cfg = dataclasses.replace(cfg, stages=stages,
+                                  n_layers=sum(n for _, n in stages))
+    params = lm_params(torch, cfg, SEED + 60 + k)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg)
+    _lm_warm(params, cfg, max_seq, prompts[1])
+    engine, reqs, record, launches, peak, run_s = _lm_engine_run(
+        torch, params, cfg, max_seq, prompts)
+    stats = _lm_stats(cfg, engine, reqs, record, max_seq, peak)
+    del engine
+    ok_reqs = _requests_ok(cfg, reqs)
+    k1_calls = sorted({c[3] for c in record})
+    others = {n: v for n, v in launches.items() if v}
+    engine2, again, _, _, _, _ = _lm_engine_run(torch, params, cfg, max_seq,
+                                                prompts)
+    del engine2
+    same = [r.generated for r in again] == [r.generated for r in reqs]
+    fp32 = lm_family_fp32(torch, arch, params, cfg)
+    row = {"phase": "lm serve", "arch": arch, "n_layers": cfg.n_layers,
+           "stages": [list(st) for st in cfg.resolved_stages],
+           "depth": "full" if stages is None else "cut",
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "vocab": cfg.vocab,
+           "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+           "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
+           "ssm": dataclasses.asdict(cfg.ssm) if cfg.ssm else None,
+           "weights": f"random on the card, seed {SEED + 60 + k}, fp32, "
+                      "bf16 compute", "init_s": init_s,
+           "requests_ok": ok_reqs, "run_s": run_s, **stats,
+           "k1_launches_per_call": k1_calls,
+           "other_kernel_launches": others,
+           "second_run_same_tokens": same, "fp32": fp32}
+    emit(row)
+    if not ok_reqs:
+        fail(f"lm serve {arch}: a request did not end done with {LM_NEW} "
+             f"tokens in [0, vocab): {[(r.status, r.error) for r in reqs]}")
+    if others or k1_calls != [0]:
+        fail(f"lm serve {arch}: a kernel launched: {others}, K1 per call "
+             f"{k1_calls}")
+    if not same:
+        fail(f"lm serve {arch}: a second engine run gave other tokens")
+    if not fp32["ok"]:
+        fail(f"lm serve {arch}: an fp32 point is off: {fp32}")
+    del params
     torch.cuda.empty_cache()
     return {n: launches.get(n, 0) for n in TOL}
 
@@ -3117,6 +3388,12 @@ def lm_serve_phase(torch) -> dict:
     launches = {f"lm serve {arch}": lm_serve_one(torch, arch, k)
                 for k, arch in enumerate(LM_ARCHS)}
     lm_fp32_point(torch)
+    for k, (arch, stages, max_seq) in enumerate(LM_FAMILIES):
+        t1 = time.perf_counter()
+        launches[f"lm serve {arch}"] = lm_family_one(torch, arch, stages,
+                                                     max_seq, k)
+        emit({"phase": "lm serve seconds", "arch": arch,
+              "seconds": time.perf_counter() - t1})
     emit({"phase": "lm serve seconds", "seconds": time.perf_counter() - t0})
     return launches
 

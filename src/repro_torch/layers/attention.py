@@ -233,6 +233,18 @@ def masked_decode_softmax_av(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def scatter_rows(cache: torch.Tensor, new: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """A copy of the cache ``cache`` (B, S, ...) with row ``rows[b]`` of
+    batch b set to ``new[b, 0]``: the reference's one-row
+    ``dynamic_update_slice`` of a decode write, by index assignment, which
+    raises on a row past the end where the reference would clamp it."""
+    out = cache.clone()
+    out[torch.arange(cache.shape[0], device=cache.device), rows] = \
+        new[:, 0].to(cache.dtype)
+    return out
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                      window: int | None = None) -> torch.Tensor:

@@ -2,12 +2,14 @@
 batching over the decoder's prefill and decode steps. The port of the
 reference's ``serving/engine.py``, behaviour for behaviour.
 
-Design: a fixed number of slots share one batched KV cache. Requests are
-admitted into free slots (a batch-1 prefill, its cache rows copied into the
-slot), all active slots advance together with one batched decode step per
-token, and a finished sequence frees its slot at once. The engine runs on
-the card unless the caller asks for the CPU (``device="cpu"``), and its
-parameters must already lie there; its compute dtype is
+Design: a fixed number of slots share one batched cache (KV rows, MLA's
+latent rows or recurrent states; every leaf has the batch on axis 0).
+Requests are admitted into free slots (a batch-1 prefill, its cache rows
+copied into the slot), all active slots advance together with one
+batched decode step per token, and a finished sequence frees its slot at
+once. The engine runs on the card unless the caller asks for the CPU
+(``device="cpu"``), and its parameters must already lie there; its
+compute dtype is
 ``model_forward``'s default, bf16, and each weight is cast where the
 reference casts it, per call.
 
@@ -408,9 +410,7 @@ class ServingEngine:
                 raise
             self._dispatch_failure(None, req, err)
             return False
-        # copy the single-row cache into this slot
-        tree_map(lambda full, one: full[slot].copy_(one[0]), self.cache,
-                 out["cache"])
+        self._copy_into_slot(slot, out["cache"])
         self.lengths[slot] = len(req.prompt)
         self.slot_req[slot] = req
         req.status = "active"
@@ -420,6 +420,26 @@ class ServingEngine:
         # the first generated token comes from the prefill logits
         self._emit(slot, out["logits"][0, -1], req)
         return True
+
+    def _copy_into_slot(self, slot: int, cache):
+        """Copy a batch-1 prefill's caches and states into ``slot`` (each
+        leaf cast to the engine's: a Mamba conv state comes out of the
+        prefill in the compute dtype and is kept in fp32). A rolling cache
+        holds ``window`` rows while the slot holds ``min(window,
+        max_seq)``: where the window is the larger, this raises naming
+        both (ROADMAP.md R7; the reference's slot copy fails there
+        too)."""
+        def copy(full, one):
+            if full.shape[1:] != one.shape[1:]:
+                raise ValueError(
+                    f"{self.cfg.name}: the prefill's cache rows "
+                    f"{tuple(one.shape[1:])} do not fit slot rows "
+                    f"{tuple(full.shape[1:])}: the sliding window of "
+                    f"{self.cfg.sliding_window} tokens exceeds max_seq="
+                    f"{self.max_seq} (ROADMAP.md R7)")
+            full[slot].copy_(one[0])
+
+        tree_map(copy, self.cache, cache)
 
     def _admit(self) -> bool:
         admitted = False
@@ -544,10 +564,13 @@ class ServingEngine:
             if len(groups) == 1 and not failed_groups:
                 self.cache = out["cache"]
             else:
+                # Each group's rows, cast to the engine's leaf as the
+                # reference's ``.at[].set`` casts (a Mamba conv state
+                # comes out of decode in the compute dtype).
                 idx = torch.as_tensor(slots, device=self.device)
                 tree_map(lambda acc, new: acc.index_copy_(
-                    0, idx, new.index_select(0, idx)), self.cache,
-                    out["cache"])
+                    0, idx, new.index_select(0, idx).to(acc.dtype)),
+                    self.cache, out["cache"])
             finite = finite.cpu().numpy()
             logits = out["logits"][:, 0]
             for s in slots:

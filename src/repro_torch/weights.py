@@ -11,7 +11,8 @@ a decoder LM: the reference stacks each stage's layers on a leading axis
 list of per-layer dicts.
 
 ``randomize_tree`` overwrites every leaf with seeded values, so that no
-zero-initialised output projection hides the computation behind it;
+zero-initialised output projection hides the computation behind it (a
+weight, ``w`` or an MoE expert bank ``wi``/``wo``, scaled by its fan-in);
 ``random_params_like`` draws a tree of the same rules on a device, for
 full-width models whose numpy draw would take too long.
 """
@@ -90,9 +91,17 @@ def params_to_numpy(params: dict) -> dict:
     return out
 
 
+# Leaves drawn as weights, N(0, 1) / sqrt(d_in): a dense ``w`` (d_in,
+# d_out) and the MoE expert banks ``wi`` (E, d, 2f) and ``wo`` (E, f, d),
+# stacked on a layer axis or not. (SwiGLU's ``wi``/``wo`` are dicts that
+# hold a ``w``.)
+_WEIGHTS = ("w", "wi", "wo")
+
+
 def randomize_tree(tree, seed: int):
     """Overwrite every leaf of a numpy parameter tree with seeded values:
-    a weight ``w`` (d_in, d_out), stacked or not, gets N(0, 1)/sqrt(d_in);
+    a weight (``_WEIGHTS``: ``w`` (d_in, d_out) or an expert bank ``wi``/
+    ``wo`` (E, d_in, d_out)), stacked or not, gets N(0, 1)/sqrt(d_in);
     a LayerNorm ``gamma`` gets 1 + 0.1 N(0, 1); every other leaf (biases,
     ``beta``, point weights) 0.1 N(0, 1). Leaves are visited in sorted key
     order (a list, such as a decoder's stages, in its order), so the
@@ -106,7 +115,7 @@ def randomize_tree(tree, seed: int):
             return [walk(n, key) for n in node]
         shape = np.shape(node)
         z = rng.standard_normal(shape).astype(np.float32)
-        if key == "w":
+        if key in _WEIGHTS:
             return z / np.float32(np.sqrt(shape[-2]))
         if key == "gamma":
             return 1.0 + np.float32(0.1) * z
@@ -155,8 +164,8 @@ def random_params_like(skeleton, seed: int, device=None,
                        dtype: torch.dtype = torch.float32):
     """A tree of ``skeleton``'s structure and shapes (its leaves may lie on
     the ``meta`` device) drawn on ``device`` from a generator seeded with
-    ``seed``, by ``randomize_tree``'s rules: a weight ``w`` N(0, 1) /
-    sqrt(d_in), a ``gamma`` 1 + 0.1 N(0, 1), every other leaf 0.1 N(0, 1);
+    ``seed``, by ``randomize_tree``'s rules: a weight (``w``, ``wi``,
+    ``wo``) N(0, 1) / sqrt(d_in), a ``gamma`` 1 + 0.1 N(0, 1), every other leaf 0.1 N(0, 1);
     leaves visited in sorted key order, lists in order. Not the numpy
     draw's values: the same distribution, drawn where the model runs."""
     device = resolve_device(device)
@@ -169,7 +178,7 @@ def random_params_like(skeleton, seed: int, device=None,
             return [walk(n, key) for n in node]
         z = torch.randn(tuple(node.shape), generator=gen, device=device,
                         dtype=torch.float32)
-        if key == "w":
+        if key in _WEIGHTS:
             z = z / float(np.sqrt(node.shape[-2]))
         elif key == "gamma":
             z = 1.0 + 0.1 * z

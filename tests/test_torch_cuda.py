@@ -943,33 +943,41 @@ def test_layer_norm_kernel_at_the_decoders_width(gen, shape, dtype, tol,
     _close(got, ref.layer_norm_ref(x, gamma, beta), tol)
 
 
-def test_lm_engine_on_the_card_gives_the_cpu_fp32_greedy_tokens(gen):
-    """musicgen-medium REDUCED served on the card (bf16, K1 at every
-    LayerNorm) against sequential greedy decoding with the port's fp32
-    ``model_forward`` on the CPU on the same weights: the same tokens, up
-    to the first step whose two candidates are a bf16 near tie of the fp32
-    logits (within 2e-2·max(1, max|logits|); the sequences then go on from
-    different tokens)."""
-    from repro_torch.configs import get_config
+def _serve_on_the_card(cfg, seed, n_new=6):
+    """``cfg`` served on the card (bf16) from weights drawn on the CPU
+    and copied there: (CPU weights, prompts, requests, K1 launches,
+    other kernels' launches)."""
     from repro_torch.layers.params import tree_map
-    from repro_torch.models.decoder import init_model, model_forward
+    from repro_torch.models.decoder import init_model
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.weights import random_params_like
 
-    cfg = get_config("musicgen-medium", reduced_variant=True)
     with torch.device("meta"):
         skeleton = init_model(torch.Generator(), cfg)
-    cpu = random_params_like(skeleton, 3, device="cpu")
+    cpu = random_params_like(skeleton, seed, device="cpu")
     card = tree_map(lambda t: t.to("cuda"), cpu)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=torch.Generator()
                              .manual_seed(n)).numpy() for n in (5, 9, 12)]
     eng = ServingEngine(card, cfg, n_slots=2, max_seq=32)
     _build.reset_launches()
-    reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
     eng.run()
-    assert _build.LAUNCHES["layer_norm"] > 0
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    return (cpu, prompts, reqs, launches.pop("layer_norm", 0),
+            {k: v for k, v in launches.items() if v})
+
+
+def _assert_cpu_fp32_greedy(cpu, cfg, prompts, reqs, n_new=6):
+    """Each request's tokens equal sequential greedy decoding with the
+    port's fp32 ``model_forward`` on the CPU, up to the first step whose
+    two candidates are a bf16 near tie of the fp32 logits (within
+    2e-2·max(1, max|logits|); the sequences then go on from different
+    tokens)."""
+    from repro_torch.models.decoder import model_forward
+
     for prompt, req in zip(prompts, reqs):
-        assert req.status == "done" and len(req.generated) == 6
+        assert req.status == "done" and len(req.generated) == n_new
         toks = list(prompt)
         for i, tok in enumerate(req.generated):
             logits = model_forward(cpu, torch.as_tensor(toks)[None], cfg,
@@ -982,3 +990,40 @@ def test_lm_engine_on_the_card_gives_the_cpu_fp32_greedy_tokens(gen):
                     i, tok, want, gap)
                 break
             toks.append(tok)
+
+
+def test_lm_engine_on_the_card_gives_the_cpu_fp32_greedy_tokens(gen):
+    """musicgen-medium REDUCED served on the card (bf16, K1 at every
+    LayerNorm) against sequential greedy decoding with the port's fp32
+    ``model_forward`` on the CPU on the same weights."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("musicgen-medium", reduced_variant=True)
+    cpu, prompts, reqs, k1, _ = _serve_on_the_card(cfg, 3)
+    assert k1 > 0
+    _assert_cpu_fp32_greedy(cpu, cfg, prompts, reqs)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-236b",
+                                  "hymba-1.5b", "xlstm-125m"])
+def test_lm_engine_serves_each_decoder_family_on_the_card(gen, arch):
+    """The MoE, MLA, hymba and xLSTM kinds, REDUCED, served on the card
+    (bf16; no kernel launched: all four are RMSNorm models) against the
+    CPU's fp32 sequential greedy tokens, and served again to the same
+    tokens (the MoE combine has no atomics). The MoE configs run at a
+    capacity factor of 100, so that capacity equals the tokens of every
+    call and a decode step is the recompute's routing; at the default
+    capacity the prefill's 12 tokens would drop some."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, reduced_variant=True)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=100.0))
+    cpu, prompts, reqs, k1, others = _serve_on_the_card(cfg, 4)
+    assert k1 == 0 and not others
+    _assert_cpu_fp32_greedy(cpu, cfg, prompts, reqs)
+    _, _, again, _, _ = _serve_on_the_card(cfg, 4)
+    assert [r.generated for r in again] == [r.generated for r in reqs]

@@ -39,6 +39,7 @@ def _port_files():
                                          ROOT / "scripts" / "torch_fold_memory.py",
                                          ROOT / "scripts" / "torch_fold_latency.py",
                                          ROOT / "scripts" / "torch_train_alphafold.py",
+                                         ROOT / "scripts" / "torch_lm_bf16_spread.py",
                                          # What spawned test ranks import.
                                          ROOT / "tests" / "torch_dist_cases.py"]
 

@@ -275,7 +275,9 @@ BUDGETS = [1, 1 << 20, 3 << 20, 5 << 20, 6 << 20, 8 << 20, 1 << 30, 1 << 34]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-27b",
-                                  "musicgen-medium", "qwen1.5-32b"])
+                                  "musicgen-medium", "qwen1.5-32b",
+                                  "deepseek-moe-16b", "deepseek-v2-236b",
+                                  "hymba-1.5b", "xlstm-125m"])
 @pytest.mark.parametrize("reduced", [True, False])
 def test_block_plans_and_admission_equal_the_reference(arch, reduced):
     jc = jget(arch, reduced_variant=reduced)
@@ -298,6 +300,71 @@ def test_block_plans_and_admission_equal_the_reference(arch, reduced):
                         tc_, seq_len=seq_len, **kw)) == dataclasses.asdict(
                         jac.check_decoder_admission(jc_, seq_len=seq_len,
                                                     **kw))
+
+
+FAMILIES = ["deepseek-moe-16b", "deepseek-v2-236b", "hymba-1.5b",
+            "xlstm-125m"]
+
+
+def _family_sides(arch, seed=0):
+    """Both packages on reduced ``arch``, every weight randomised."""
+    jc = jget(arch, reduced_variant=True)
+    tree = randomize_tree(_np_tree(jdec.init_model(jax.random.PRNGKey(seed),
+                                                   jc)), seed + 1)
+    return (types.SimpleNamespace(
+                name="jax", cfg=jc, params=jax.tree.map(jnp.asarray, tree),
+                ServingEngine=jeng.ServingEngine, preset=jplan.preset),
+            types.SimpleNamespace(
+                name="torch", cfg=tget(arch, reduced_variant=True),
+                params=decoder_params_from_numpy(tree, device="cpu"),
+                ServingEngine=functools.partial(teng.ServingEngine,
+                                                device="cpu"),
+                preset=tplan.preset))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_engine_serves_each_decoder_family(arch):
+    """Both engines serve five requests on two slots of reduced ``arch``
+    (the MoE, MLA, hymba and xLSTM kinds), the fourth an oracle-plan
+    canary, so a decode step runs two plan groups and commits each
+    group's rows of every cache and recurrent state. The outcomes are the
+    same, the greedy tokens the same up to a bf16 near tie, each package's
+    mixed-plan tokens equal its single-plan run, and the port's first
+    request equals sequential greedy decoding (a train-mode recompute a
+    token) up to a bf16 near tie: MLA decodes in its absorbed form, which
+    rounds apart from the materialised recompute."""
+    sides = _family_sides(arch)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 500, size=(6 + (i % 3),)) for i in range(5)]
+    runs = {}
+    for side in sides:
+        plans = [side.preset("oracle") if i == 3 else None
+                 for i in range(len(prompts))]
+        _, mixed = run_engine(side, prompts, max_new=4, plans=plans)
+        _, single = run_engine(side, prompts, max_new=4)
+        assert [r.status for r in mixed] == ["done"] * len(prompts)
+        assert [r.generated for r in mixed] == [r.generated for r in single]
+        if side.name == "torch":
+            assert_same_greedy(sides, prompts[0], mixed[0].generated,
+                               _seq_greedy(side, prompts[0], 4))
+        runs[side.name] = mixed
+    assert_same_outcomes(sides, prompts, runs["jax"], runs["torch"])
+
+
+def test_engine_fails_where_the_window_exceeds_max_seq():
+    """ROADMAP.md R7: reduced hymba-1.5b (window 16) at max_seq 12. The
+    prefill's rolling cache holds 16 rows, the slot 12: the reference's
+    slot copy raises there, and so does the port's, naming both."""
+    prompt = np.random.default_rng(6).integers(0, 500, size=(6,))
+    for side in _family_sides("hymba-1.5b"):
+        assert side.cfg.sliding_window == 16
+        eng = side.ServingEngine(side.params, side.cfg, n_slots=2,
+                                 max_seq=12)
+        eng.submit(prompt, max_new_tokens=2)
+        match = ("sliding window of 16 tokens exceeds max_seq=12"
+                 if side.name == "torch" else "Incompatible shapes")
+        with pytest.raises(ValueError, match=match):
+            eng.run()
 
 
 def test_planner_budget_defaults_to_the_device():

@@ -9,6 +9,9 @@ Tolerances scale with the reference's magnitude:
         is 2**-8 relative, and the two frameworks round at a few different
         places inside a module.
 """
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,3 +78,60 @@ def jax_dropout_keeps(rng, evo_cfg, batch_shape) -> list[dict]:
             block[site] = torch.as_tensor(np.asarray(keep, np.float32))
         keeps.append(block)
     return keeps
+
+
+# The router's resolution in bf16: a probability (at most 1) moved by one
+# bf16 rounding of the inputs upstream moves by about this much.
+BF16_ROUTE_RES = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Within the scope, every call of the reference's ``moe_ffn`` and of
+    the port's router appends its fp32 router probabilities (N, E), as
+    numpy, to ``ref`` and ``port`` of the yielded namespace (the
+    reference's through an ordered ``jax.debug.callback``, so calls inside
+    ``lax.scan`` record too)."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    rec = types.SimpleNamespace(ref=[], port=[])
+    j_orig, t_orig = jmoe.moe_ffn, tmoe.route
+
+    def j_moe_ffn(p, x, moe):
+        xf = x.reshape(-1, x.shape[-1]).astype(jnp.float32)
+        probs = jax.nn.softmax(xf @ p["router"]["w"].astype(jnp.float32),
+                               axis=-1)
+        jax.debug.callback(lambda pr: rec.ref.append(np.asarray(pr)), probs,
+                           ordered=True)
+        return j_orig(p, x, moe)
+
+    def t_route(p, xf, moe):
+        out = t_orig(p, xf, moe)
+        rec.port.append(out[0].detach().float().cpu().numpy())
+        return out
+
+    jmoe.moe_ffn, tmoe.route = j_moe_ffn, t_route
+    try:
+        yield rec
+    finally:
+        jmoe.moe_ffn, tmoe.route = j_orig, t_orig
+
+
+def assert_same_routing(rec, top_k: int, what: str = "") -> int:
+    """Each recorded router call chose the same top-k experts in both
+    packages for every token whose reference margin (k-th largest
+    probability less the next) exceeds ``BF16_ROUTE_RES``. Returns the
+    number of tokens held."""
+    assert len(rec.port) == len(rec.ref) > 0, (what, len(rec.port),
+                                               len(rec.ref))
+    held = 0
+    for i, (pr, jr) in enumerate(zip(rec.port, rec.ref)):
+        srt = np.sort(jr, axis=-1)[:, ::-1]
+        sure = srt[:, top_k - 1] - srt[:, top_k] > BF16_ROUTE_RES
+        want = np.sort(np.argsort(-jr, axis=-1, kind="stable")[:, :top_k], -1)
+        got = np.sort(np.argsort(-pr, axis=-1, kind="stable")[:, :top_k], -1)
+        bad = np.nonzero(sure & (want != got).any(-1))[0]
+        assert not bad.size, f"{what} call {i}: tokens {bad} route apart"
+        held += int(sure.sum())
+    return held
