@@ -131,6 +131,29 @@ Phases, each printing JSON lines:
                host's CPU, within 1e-3 (the smallest router top-k margin
                printed). The survey (3) records K1's calls at this phase's
                shapes, so phase 4 checks and times K1 there.
+     lm train — decoder LM training through ``repro_torch.launch.train``
+               (``make_train_step`` over ``lm_loss``, AdamW, fp32 master
+               weights and moments, bf16 compute, each layer checkpointed)
+               at full width and depth on fp32 weights drawn on the card:
+               qwen2-1.5b, musicgen-medium and xlstm-125m, 3 steps each of
+               batch 4 x 512 tokens from ``lm_batches``: losses and
+               gradient norms finite, no skipped step, K1 4 · n_layers + 1
+               launches a step on musicgen-medium (97 in the forward, 96 in
+               the recompute) and none on the others, no other kernel; the
+               median of steps 2-3, tokens/s, peak memory beside the train
+               state's bytes, and whether two identical steps give the
+               same bits (bit checksums of every leaf, printed, not gated).
+               Then each cut to 2 layers (one of each kind for xlstm) at
+               full width, batch 1 x 128, fp32: the loss and every
+               gradient on the card against the port on the host's CPU
+               within 1e-3; musicgen-medium's cut in bf16, the default
+               plan (K1) against oracle within 2e-2 for the loss and every
+               gradient, the plain LayerNorm with beta left out of one norm
+               rejected, the 48-layer gap printed; and the trainer's
+               command line once more, 2 steps
+               of xlstm-125m with ``--trace``, read back by ``python -m
+               repro_torch.obs report --strict``. The survey (3) records
+               K1's call at the training shape.
 The survey (3) also records every kernel call of one training step cut to
 one block, under both plans, so phase 4 checks the training kernels at the
 training shapes, and the DAP and TP phases' calls at their shapes.
@@ -143,6 +166,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -2836,6 +2860,12 @@ LM_FAMILIES = (
     ("deepseek-v2-236b", (("mla+dense", 1), ("mla+moe", 1)), LM_MAX_SEQ),
 )
 LM_FAMILY_PREFILL, LM_FAMILY_STEPS, LM_FAMILY_CPU_PROMPT = 128, 4, 32
+# Decoder training at full width and depth: 3 steps of 4 x 512 tokens (512
+# a multiple of mLSTM's 256-token chunk, R8), then the points on a 2-layer
+# cut at 1 x 128 tokens.
+LM_TRAIN_ARCHS = ("qwen2-1.5b", "musicgen-medium", "xlstm-125m")
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 512, 3
+LM_TRAIN_CUT, LM_TRAIN_POINT_SEQ = 2, 128
 
 
 def lm_prompts(cfg) -> list:
@@ -2863,11 +2893,12 @@ def lm_params(torch, cfg, seed: int, dtype=None):
 
 
 def lm_survey(torch, seen: dict) -> None:
-    """musicgen-medium's LayerNorm calls (K1) at the lm serve phase's
-    shapes, recorded into ``seen`` for the kernel phase: the prefill of
-    each prompt length (1, S, 1536) and the batched decode (4, 1, 1536) in
-    bf16, and the fp32 point's prefill, on the model cut to one layer
-    (every layer hands K1 the same shapes)."""
+    """musicgen-medium's LayerNorm calls (K1) at the lm serve and lm train
+    phases' shapes, recorded into ``seen`` for the kernel phase: the
+    prefill of each prompt length (1, S, 1536) and the batched decode
+    (4, 1, 1536) in bf16, the fp32 points' (1, 128, 1536), and a training
+    batch (4, 512, 1536) in bf16 (its forward and recompute), on the model
+    cut to one layer (every layer hands K1 the same shapes)."""
     from repro_torch.configs import get_config
     from repro_torch.models.decoder import init_cache, model_forward
 
@@ -2890,6 +2921,11 @@ def lm_survey(torch, seen: dict) -> None:
         model_forward(params, torch.zeros((1, 128), dtype=torch.long,
                                           device="cuda"), cfg,
                       mode="prefill", compute_dtype=torch.float32)
+        where[0] = (f"lm musicgen-medium train B={LM_TRAIN_BATCH} "
+                    f"S={LM_TRAIN_SEQ}")
+        model_forward(params, torch.zeros((LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                                          dtype=torch.long, device="cuda"),
+                      cfg)
     torch.cuda.synchronize()
     del params
 
@@ -3398,6 +3434,242 @@ def lm_serve_phase(torch) -> dict:
     return launches
 
 
+def _bit_digest(torch, state, metrics) -> list:
+    """The loss's and gradient norm's bits, and the sum of each parameter
+    and moment leaf's 32-bit words: equal digests of two steps say their
+    results are equal to the bit (up to a collision of the sums)."""
+    from repro_torch.layers.params import tree_leaves
+
+    leaves = (tree_leaves(state.params) + tree_leaves(state.opt_state.m)
+              + tree_leaves(state.opt_state.v))
+    sums = torch.stack([t.view(torch.int32).sum(dtype=torch.int64)
+                        for t in leaves if t.numel()])
+    return ([float(metrics["loss"]), float(metrics["grad_norm"])]
+            + sums.tolist())
+
+
+def lm_train_one(torch, arch: str, k: int) -> dict:
+    """``arch`` trained at full width and depth through
+    ``launch.train.train``: LM_TRAIN_STEPS steps, each checked as it ends
+    (finite loss and gradient norm, no skip, K1's launches), then two
+    identical steps from the last state. Returns the main path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.layers.params import count_params
+
+    cfg = get_config(arch)
+    per_step = 4 * cfg.n_layers + 1 if cfg.norm == "layernorm" else 0
+    steps, last = [], {}
+
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append({
+            "step": i + 1, "seconds": now - last["t"],
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "nonfinite_skips": float(metrics["nonfinite_skips"]),
+            "k1_launches": _build.LAUNCHES["layer_norm"] - last["k1"]})
+        last.update(t=now, k1=_build.LAUNCHES["layer_norm"],
+                    n_params=count_params(state.params))
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()                     # the main path starts here
+    last.update(t=time.perf_counter(), k1=0)
+    state = launch_train.train(
+        cfg, lm_params(torch, cfg, SEED + 70 + k), steps=LM_TRAIN_STEPS,
+        batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, device="cuda",
+        on_step=on_step)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    run_s = time.perf_counter() - t0
+    # Two identical steps from the last state on one batch (uncounted).
+    _, step = launch_train.make_lm_step(cfg, steps=LM_TRAIN_STEPS,
+                                        batch=LM_TRAIN_BATCH,
+                                        seq=LM_TRAIN_SEQ)
+    batch = launch_train.lm_batch(next(lm_batches(
+        vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+        seed=SEED + 80)), cfg, "cuda")
+    digests = []
+    for _ in range(2):
+        digests.append(_bit_digest(torch, *step(state, batch)))
+    del state
+    torch.cuda.empty_cache()
+    n_params = last["n_params"]
+    warm = statistics.median(r["seconds"] for r in steps[1:])
+    others = {n: v for n, v in launches.items() if n != "layer_norm" and v}
+    row = {"phase": "lm train", "arch": arch, "n_layers": cfg.n_layers,
+           "stages": [list(st) for st in cfg.resolved_stages],
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "norm": cfg.norm,
+           "params": n_params,
+           "weights": f"random on the card, seed {SEED + 70 + k}, fp32, "
+                      "bf16 compute, AdamW", "batch": LM_TRAIN_BATCH,
+           "seq": LM_TRAIN_SEQ, "steps": steps,
+           "step_s_median_2_3": warm,
+           "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / warm,
+           "run_s": run_s, "peak_memory_bytes": peak,
+           "state_bytes_reckoned": 12 * n_params,
+           "k1_per_step_expected": per_step,
+           "k1_launches": launches.get("layer_norm", 0),
+           "other_kernel_launches": others,
+           "two_identical_steps_same_bits": digests[0] == digests[1],
+           "two_identical_steps_loss": [d[0] for d in digests]}
+    emit(row)
+    bad = [r for r in steps if not (math.isfinite(r["loss"])
+                                    and math.isfinite(r["grad_norm"])
+                                    and r["nonfinite_skips"] == 0
+                                    and r["k1_launches"] == per_step)]
+    if len(steps) != LM_TRAIN_STEPS or bad:
+        fail(f"lm train {arch}: steps {bad or steps} (finite loss and "
+             f"gradient norm, no skip, K1 {per_step} a step)")
+    if others:
+        fail(f"lm train {arch}: another kernel launched: {others}")
+    return {n: launches.get(n, 0) for n in TOL}
+
+
+def _cut_for_training(params, cfg):
+    """The first LM_TRAIN_CUT layers of a one-stage model, or one layer of
+    each kind (xLSTM's mLSTM and sLSTM), sharing the weights."""
+    if len(cfg.resolved_stages) == 1:
+        return _cut_layers(params, cfg, LM_TRAIN_CUT)
+    return _one_layer_of_each_kind(params, cfg)
+
+
+def _lm_grads(torch, params, cfg, batch, dtype, plan: str = "default"):
+    """[loss, every gradient leaf] of ``lm_loss`` at ``dtype`` compute
+    under ``plan``; zero-size leaves left out."""
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.layers.params import tree_leaves, tree_map
+    from repro_torch.models.decoder import lm_loss
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with use_plan(plan_of(plan)):
+        loss, _ = lm_loss(live, batch, cfg, compute_dtype=dtype)
+        loss.backward()
+    return [loss.detach()] + [t.grad for t in tree_leaves(live) if t.numel()]
+
+
+def _grad_gap(got: list, want: list) -> float:
+    """max over the loss and each gradient leaf of
+    max|got - want| / max(1, max|want|)."""
+    return max(rel_err(g.cpu(), w.cpu())[1] for g, w in zip(got, want))
+
+
+def lm_train_points(torch, arch: str, k: int) -> dict:
+    """``arch`` at full width cut to LM_TRAIN_CUT layers, one batch of
+    1 x LM_TRAIN_POINT_SEQ tokens: fp32, the loss and every gradient on the
+    card against the port on the host's CPU; for a LayerNorm model also
+    bf16, the default plan (K1) against oracle, gated, with its control,
+    and the whole model's gap, printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.layers.params import tree_map
+
+    cfg = get_config(arch)
+    full = lm_params(torch, cfg, SEED + 90 + k)
+    params, cut = _cut_for_training(full, cfg)
+    if cfg.norm != "layernorm":
+        del full
+    lb = next(lm_batches(vocab=cfg.vocab, batch=1, seq=LM_TRAIN_POINT_SEQ,
+                         seed=SEED + 91 + k))
+    card = _lm_grads(torch, params, cut, lm_batch(lb, cut, "cuda"),
+                     torch.float32)
+    host = _lm_grads(torch, tree_map(lambda t: t.cpu(), params), cut,
+                     lm_batch(lb, cut, "cpu"), torch.float32)
+    row = {"phase": "lm train point", "arch": arch,
+           "kinds": [kd for kd, _ in cut.resolved_stages],
+           "layers": cut.n_layers, "tokens": LM_TRAIN_POINT_SEQ,
+           "fp32_card_vs_cpu": _grad_gap(card, host), "fp32_tol": LM_FP32_TOL,
+           "loss_card": float(card[0]), "loss_cpu": float(host[0])}
+    del card, host
+    ok = row["fp32_card_vs_cpu"] <= LM_FP32_TOL
+    if cut.norm == "layernorm":
+        batch = lm_batch(lb, cut, "cuda")
+        bf16 = {n: _lm_grads(torch, params, cut, batch, torch.bfloat16, n)
+                for n in ("default", "oracle")}
+        layer0 = dict(params["stages"][0][0])
+        layer0["ln1"] = {**layer0["ln1"],
+                         "beta": torch.zeros_like(layer0["ln1"]["beta"])}
+        no_beta = {**params, "stages": [[layer0] + params["stages"][0][1:]]}
+        control = _lm_grads(torch, no_beta, cut, batch, torch.bfloat16,
+                            "oracle")
+        row.update({
+            "bf16_default_vs_oracle": _grad_gap(bf16["default"],
+                                                bf16["oracle"]),
+            "bf16_control_no_beta_vs_oracle": _grad_gap(control,
+                                                        bf16["oracle"]),
+            "bf16_tol": LM_BF16_TOL})
+        del bf16, control
+        # The whole model's gap, printed, not gated (ROADMAP.md C4).
+        whole = {n: _lm_grads(torch, full, cfg, batch, torch.bfloat16, n)
+                 for n in ("default", "oracle")}
+        row["bf16_whole_model_default_vs_oracle"] = _grad_gap(
+            whole["default"], whole["oracle"])
+        del whole, full
+        ok = ok and (row["bf16_default_vs_oracle"] <= LM_BF16_TOL
+                     < row["bf16_control_no_beta_vs_oracle"])
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        fail(f"lm train point {arch}: {row}")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_train_cli(torch) -> dict:
+    """``python -m repro_torch.launch.train`` in this process, on the card
+    by default: 2 steps of xlstm-125m with ``--trace``, the trace read
+    back by ``python -m repro_torch.obs report --strict``."""
+    import io
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.obs.__main__ import main as obs_report
+    from repro_torch.obs.events import read_jsonl
+
+    path = ROOT / "build" / "lm_train_events.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(["--arch", "xlstm-125m", "--steps", "2",
+                           "--trace", str(path)])
+        rc = obs_report(["report", str(path), "--strict"])
+    events = [e for e in read_jsonl(str(path)) if e["kind"] == "train_step"]
+    row = {"phase": "lm train cli", "arch": "xlstm-125m",
+           "seconds": time.perf_counter() - t0, "report_rc": rc,
+           "train_step_events": len(events),
+           "output": out.getvalue().splitlines()[-12:]}
+    emit(row)
+    if rc != 0 or len(events) != 2:
+        fail(f"lm train cli: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_train_phase(torch) -> dict:
+    """The ``lm train`` phase; returns each configuration's launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    for k, arch in enumerate(LM_TRAIN_ARCHS):
+        t1 = time.perf_counter()
+        launches[f"lm train {arch}"] = lm_train_one(torch, arch, k)
+        lm_train_points(torch, arch, k)
+        emit({"phase": "lm train seconds", "arch": arch,
+              "seconds": time.perf_counter() - t1})
+    lm_train_cli(torch)
+    emit({"phase": "lm train seconds", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def dap_phases(torch, tree, batches, seen):
     """The DAP and TP phases; the kernel calls at their shard shapes join
     ``seen`` (checked by ``kernel_phase``). Returns their launches."""
@@ -3470,6 +3742,7 @@ def main() -> int:
         torch, tree, batches, "attention-oracle", baseline=latencies)
     smoke_phase(torch)
     launches.update(lm_serve_phase(torch))
+    launches.update(lm_train_phase(torch))
     parity_phase(torch, tree, batches)
     launches["train"], nothing = train_phase(torch)
     launches["train attention-oracle"], _ = train_phase(

@@ -13,17 +13,20 @@ JAX (no Pallas kernel serves it), written as the reference's loops so that
 its block knobs mean what the serving planner thinks they mean:
 
 * ``blockwise_attention`` — an online softmax over ``kv_block`` chunks of
-  the keys, fp32 running max and sum (training forward and prefill);
+  the keys, fp32 running max and sum (training and prefill);
 * ``sliding_window_attention`` — each ``q_block`` of queries against the
   ``window + q_block`` keys it can see;
 * ``decode_attention`` — one new token against a KV cache, masked by length
   (and window).
 
-Each takes GQA's KV heads and repeats them to the query heads. Only the
-forward is ported; the reference's ``custom_vjp`` backwards wait for
-decoder training. Products run in the inputs' dtype, their outputs cast to
-fp32 where the reference casts them, and probabilities are rounded to the
-values' dtype before the second product, as in the reference.
+Each takes GQA's KV heads and repeats them to the query heads. The first
+two are ``torch.autograd.Function``s, the reference's ``custom_vjp``s:
+the forward saves only (q, k, v, out, lse) and the backward recomputes
+the probabilities block by block, so training keeps no
+(B, H, Sq, kv_block) tensor per block. Products run in the inputs' dtype,
+their outputs cast to fp32 where the reference casts them, and
+probabilities are rounded to the values' dtype before the second product,
+as in the reference; the backward runs in fp32.
 """
 from __future__ import annotations
 
@@ -139,6 +142,99 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
 # Decoder LMs
 # ---------------------------------------------------------------------------
 
+def _kv_block_of(skv: int, kv_block: int) -> int:
+    """``min(kv_block, Skv)``, which must divide Skv (ROADMAP.md R6)."""
+    kv_block = min(kv_block, skv)
+    if skv % kv_block:
+        raise ValueError(f"blockwise_attention: kv_block={kv_block} does not "
+                         f"divide the {skv} keys")
+    return kv_block
+
+
+def _causal_fill(s, q_offset: int, j0: int):
+    """Scores (B, H, Sq, kvb) of keys from ``j0`` on, NEG_INF where a key
+    lies after its query."""
+    qpos = q_offset + torch.arange(s.shape[2], device=s.device)
+    kpos = j0 + torch.arange(s.shape[3], device=s.device)
+    return s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+
+
+def _flash_fwd_core(q, k, v, *, causal: bool, q_offset: int, kv_block: int):
+    """q (B, Sq, H, hd); k, v (B, Skv, H, hd), the heads already expanded.
+    Returns out (B, Sq, H, hd_v) in q's dtype and the fp32 lse (B, H, Sq),
+    ``m + log(max(l, 1e-30))``, as the reference's ``_flash_fwd_core``."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kv_block = _kv_block_of(skv, kv_block)
+    scale = 1.0 / (hd ** 0.5)
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), device=q.device)
+    for j0 in range(0, skv, kv_block):
+        k_j, v_j = k[:, j0:j0 + kv_block], v[:, j0:j0 + kv_block]
+        s = _scores(q, k_j, scale)
+        if causal:
+            s = _causal_fill(s, q_offset, j0)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(v_j.dtype), v_j).float()
+        m = m_new
+    l = l.clamp_min(1e-30)
+    out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    return out, m + torch.log(l)
+
+
+def _flash_bwd(q, k, v, out, lse, g, *, causal: bool, q_offset: int,
+               kv_block: int):
+    """The reference's ``_flash_bwd``: P recomputed for each KV block from
+    the lse; p, dp, ds, dq and each block's dk, dv in fp32 (q, k, v and g
+    cast to fp32), dq summed over the blocks, each gradient cast back to
+    its input's dtype at the end. dv is sized by v (MLA: hd_v != hd)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kv_block = _kv_block_of(skv, kv_block)
+    scale = 1.0 / (hd ** 0.5)
+    gf, qf = g.float(), q.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", gf, out.float())
+    dq = torch.zeros((b, sq, h, hd), device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, skv, kv_block):
+        k_j, v_j = k[:, j0:j0 + kv_block], v[:, j0:j0 + kv_block]
+        s = _scores(q, k_j, scale)
+        if causal:
+            s = _causal_fill(s, q_offset, j0)
+        p = torch.exp(s - lse[..., None])                # (B, H, Sq, kvb)
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, gf))
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, v_j.float())
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_j.float())
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_attention`` custom VJP: the forward saves
+    only (q, k, v, out, lse), the backward recomputes P block by block, so
+    no (B, H, Sq, kv_block) probabilities are kept for backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_block):
+        out, lse = _flash_fwd_core(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_block=kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.knobs = dict(causal=causal, q_offset=q_offset, kv_block=kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_flash_bwd(*ctx.saved_tensors, g, **ctx.knobs), None, None,
+                None)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0,
                         q_block: int = 512,
@@ -148,37 +244,110 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset``: the position of q[0] relative to k[0]. The query axis is
     processed whole (``q_block`` is taken and ignored, as in the
     reference); the keys in ``kv_block`` chunks, ``min(kv_block, Skv)``
-    of which must divide Skv (the reference asserts it: ROADMAP.md R6)."""
+    of which must divide Skv (the reference asserts it: ROADMAP.md R6).
+    Differentiable through ``_FlashAttention``; GQA's KV heads are
+    repeated before it, so their gradients sum over each group."""
     h = q.shape[2]
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
-    b, sq, _, hd = q.shape
-    skv = k.shape[1]
-    kv_block = min(kv_block, skv)
-    if skv % kv_block:
-        raise ValueError(f"blockwise_attention: kv_block={kv_block} does not "
-                         f"divide the {skv} keys")
+    return _FlashAttention.apply(q, k, v, causal, int(q_offset), kv_block)
+
+
+def _q_block_of(sq: int, q_block: int) -> int:
+    """``min(q_block, Sq)``, which must divide Sq (the reference asserts
+    it)."""
+    q_block = min(q_block, sq)
+    if sq % q_block:
+        raise ValueError(f"sliding_window_attention: q_block={q_block} does "
+                         f"not divide the {sq} queries")
+    return q_block
+
+
+def _swa_scores(q_i, k_i, start: int, window: int, scale: float):
+    """fp32 scores of a query block against its span of the padded keys,
+    NEG_INF where a key is not visible (after the query, more than
+    ``window`` before it, or padding)."""
+    q_block, span = q_i.shape[1], k_i.shape[1]
+    qpos = start + torch.arange(q_block, device=q_i.device)
+    kpos = start - window + torch.arange(span, device=q_i.device)
+    visible = ((kpos[None, :] <= qpos[:, None])
+               & (kpos[None, :] > qpos[:, None] - window - 1)
+               & (kpos[None, :] >= 0))
+    return _scores(q_i, k_i, scale).masked_fill(~visible, NEG_INF)
+
+
+def _swa_fwd_core(q, kp, vp, *, window: int, q_offset: int, q_block: int):
+    """q (B, Sq, H, hd); kp, vp the keys and values padded on the left by
+    ``window`` rows, heads expanded. Returns out (B, Sq, H, hd) and the
+    fp32 lse (B, H, Sq). ``out / l`` runs in v's dtype, as in the
+    reference's ``_swa_fwd_core``."""
+    sq, hd = q.shape[1], q.shape[3]
+    q_block = _q_block_of(sq, q_block)
+    span = window + q_block
     scale = 1.0 / (hd ** 0.5)
-    m = torch.full((b, h, sq), float("-inf"), device=q.device)
-    l = torch.zeros((b, h, sq), device=q.device)
-    acc = torch.zeros((b, h, sq, v.shape[-1]), device=q.device)
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    for j in range(skv // kv_block):
-        k_j = k[:, j * kv_block:(j + 1) * kv_block]
-        v_j = v[:, j * kv_block:(j + 1) * kv_block]
-        s = _scores(q, k_j, scale)
-        if causal:
-            kpos = j * kv_block + torch.arange(kv_block, device=q.device)
-            s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(v_j.dtype), v_j).float()
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)          # (B, Sq, H, hd_v)
+    outs, lses = [], []
+    for i0 in range(0, sq, q_block):
+        start = q_offset + i0
+        v_i = vp[:, start:start + span]
+        s = _swa_scores(q[:, i0:i0 + q_block], kp[:, start:start + span],
+                        start, window, scale)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1)
+        out = torch.einsum("bhqk,bkhd->bhqd", p.to(v_i.dtype), v_i)
+        outs.append((out / l[..., None].to(out.dtype)).to(q.dtype))
+        lses.append(m[..., 0] + torch.log(l.clamp_min(1e-30)))
+    return torch.cat(outs, dim=2).transpose(1, 2), torch.cat(lses, dim=2)
+
+
+def _swa_bwd(q, kp, vp, out, lse, g, *, window: int, q_offset: int,
+             q_block: int):
+    """The reference's ``_swa_bwd``: P recomputed for each query block;
+    dK and dV accumulate in fp32 into the padded buffers, read-modify-write
+    over spans that overlap by ``window`` rows. The pad rows' gradients are
+    dropped by the pad's own backward."""
+    sq, hd = q.shape[1], q.shape[3]
+    q_block = _q_block_of(sq, q_block)
+    span = window + q_block
+    scale = 1.0 / (hd ** 0.5)
+    gf = g.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", gf, out.float())
+    dkp = torch.zeros(kp.shape, device=kp.device)
+    dvp = torch.zeros(vp.shape, device=vp.device)
+    dqs = []
+    for i0 in range(0, sq, q_block):
+        start = q_offset + i0
+        q_i, g_i = q[:, i0:i0 + q_block], gf[:, i0:i0 + q_block]
+        k_i, v_i = kp[:, start:start + span], vp[:, start:start + span]
+        s = _swa_scores(q_i, k_i, start, window, scale)
+        p = torch.exp(s - lse[:, :, i0:i0 + q_block, None])
+        dv_i = torch.einsum("bhqk,bqhd->bkhd", p, g_i)
+        dp = torch.einsum("bqhd,bkhd->bhqk", g_i, v_i.float())
+        ds = p * (dp - delta[:, :, i0:i0 + q_block, None]) * scale
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, k_i.float()))
+        dk_i = torch.einsum("bhqk,bqhd->bkhd", ds, q_i.float())
+        dkp[:, start:start + span] = dkp[:, start:start + span] + dk_i
+        dvp[:, start:start + span] = dvp[:, start:start + span] + dv_i
+    return (torch.cat(dqs, dim=1).to(q.dtype), dkp.to(kp.dtype),
+            dvp.to(vp.dtype))
+
+
+class _SlidingWindowAttention(torch.autograd.Function):
+    """The reference's ``_swa_attention`` custom VJP: saves (q, kp, vp,
+    out, lse) and recomputes P per query block in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, kp, vp, window, q_offset, q_block):
+        out, lse = _swa_fwd_core(q, kp, vp, window=window, q_offset=q_offset,
+                                 q_block=q_block)
+        ctx.save_for_backward(q, kp, vp, out, lse)
+        ctx.knobs = dict(window=window, q_offset=q_offset, q_block=q_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_swa_bwd(*ctx.saved_tensors, g, **ctx.knobs), None, None,
+                None)
 
 
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
@@ -189,34 +358,15 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     predecessors. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Query block i
     reads only keys [i·qb + q_offset − window, i·qb + q_offset + qb) of the
     keys padded on the left by ``window`` rows; ``min(q_block, Sq)`` must
-    divide Sq (the reference asserts it)."""
-    b, sq, h, hd = q.shape
+    divide Sq (the reference asserts it). Differentiable through
+    ``_SlidingWindowAttention``."""
+    h = q.shape[2]
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
-    q_block = min(q_block, sq)
-    if sq % q_block:
-        raise ValueError(f"sliding_window_attention: q_block={q_block} does "
-                         f"not divide the {sq} queries")
     kp = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0))
     vp = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
-    span = window + q_block
-    scale = 1.0 / (hd ** 0.5)
-    outs = []
-    for i in range(sq // q_block):
-        start = q_offset + i * q_block
-        q_i = q[:, i * q_block:(i + 1) * q_block]
-        k_i, v_i = kp[:, start:start + span], vp[:, start:start + span]
-        qpos = start + torch.arange(q_block, device=q.device)
-        kpos = start - window + torch.arange(span, device=q.device)
-        visible = ((kpos[None, :] <= qpos[:, None])
-                   & (kpos[None, :] > qpos[:, None] - window - 1)
-                   & (kpos[None, :] >= 0))
-        s = _scores(q_i, k_i, scale).masked_fill(~visible, NEG_INF)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        out = torch.einsum("bhqk,bkhd->bhqd", p.to(v_i.dtype), v_i)
-        out = out / p.sum(dim=-1)[..., None].to(out.dtype)
-        outs.append(out.to(q.dtype))
-    return torch.cat(outs, dim=2).transpose(1, 2)     # (B, Sq, H, hd)
+    return _SlidingWindowAttention.apply(q, kp, vp, window, int(q_offset),
+                                         q_block)
 
 
 def masked_decode_softmax_av(q: torch.Tensor, k: torch.Tensor,

@@ -19,13 +19,28 @@ them; here a stage is a list of per-layer dicts
 cache ``{"k", "v"}``, MLA's ``{"c_kv", "k_rope"}``, a recurrent state, or
 hymba's ``{"attn": {"k", "v"}, "ssm": {"h", "conv"}}``). Every cache and
 state leaf has the batch on axis 0. Three modes share one path per layer:
-``train`` (causal, no cache; forward only here), ``prefill`` (causal,
-cache out) and ``decode`` (one token against the cache). Sliding-window
-layers keep rolling caches of ``window`` rows.
+``train`` (causal, no cache), ``prefill`` (causal, cache out) and
+``decode`` (one token against the cache). Sliding-window layers keep
+rolling caches of ``window`` rows.
+
+Training: ``lm_loss`` is the reference's (the text positions only, an
+fp32 log-softmax, ``ce + aux``). Under ``model_forward(remat=True)``, the
+default as in the reference, each layer of a ``train`` forward that
+builds a graph runs under ``torch.utils.checkpoint`` (non-reentrant),
+the counterpart of the reference's per-layer ``jax.checkpoint`` with
+``nothing_saveable``: a layer keeps only its inputs and runs again in the
+backward, under the plan the forward ran under; the numbers do not depend
+on it. The attention saves only (q, k, v, out, lse)
+(``layers/attention.py``). The embedding is cast, then gathered, as in
+the reference: the gather's gradient is a scatter-add into a table in the
+compute dtype, to which a tied head adds its own gradient in fp32
+(ROADMAP.md speed item 13).
 
 Every LayerNorm goes through ``ops.layer_norm``: on the card under an
 ``auto`` leg that is the LayerNorm kernel (K1), 2 · n_layers + 1 launches
-a forward for a ``norm="layernorm"`` model (musicgen-medium). The four
+a forward for a ``norm="layernorm"`` model (musicgen-medium), and
+2 · n_layers more in a training step's recompute (its backward is plain
+PyTorch, as the reference's is plain JAX). The four
 non-dense families are RMSNorm models and reach no kernel: RMSNorm, the
 attention, MoE, MLA, the SSM and xLSTM are plain PyTorch, as the
 reference's are plain JAX.
@@ -39,9 +54,8 @@ would clamp an out-of-range row; the engine retires a slot before its
 length reaches the cache's end.
 
 Left out: the reference's ``_maybe_gather_kv`` (a sharding constraint
-under a device mesh, the identity on one device), its ``shard_x``
-constrainer and ``remat`` (the forward's numbers do not depend on them),
-and ``lm_loss`` (decoder training, ROADMAP.md Queue 1 item 5c).
+under a device mesh, the identity on one device) and its ``shard_x``
+constrainer (the numbers do not depend on them; ROADMAP.md item 5g).
 """
 from __future__ import annotations
 
@@ -49,8 +63,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.exec.plan import current_plan, use_plan
 from repro_torch.layers.attention import (AttnDims, _expand_kv,
                                           blockwise_attention,
                                           decode_attention, init_attention,
@@ -436,15 +452,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
              for _ in range(count)] for kind, count in cfg.resolved_stages]
 
 
+def _train_layer(p, x, cfg: ModelConfig, kind: str, plan):
+    """One layer of a ``train`` forward under ``plan``: (x, aux). The
+    checkpointed layer's recompute runs on the backward's thread, which
+    does not see the forward's plan unless the layer re-enters it."""
+    with use_plan(plan):
+        x, _, aux = apply_layer(p, x, cfg, kind, mode="train")
+    return x, aux
+
+
 def model_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   mode: str = "train", cache=None, lengths=None,
-                  prefix_embeds=None, max_cache_len: int | None = None,
+                  prefix_embeds=None, remat: bool = True,
+                  max_cache_len: int | None = None,
                   compute_dtype=torch.bfloat16):
     """tokens: (B, S_text) int64 or int32 (S_text = 1 in decode) on the
     parameters' device; ``prefix_embeds`` (B, P, d) for the VLM and audio
     stubs (train and prefill). Returns {"logits", "cache", "aux"}: the
     cache None in train mode; ``aux`` the MoE loss summed over the layers
-    in train and prefill, an fp32 zero in decode, as in the reference."""
+    in train and prefill, an fp32 zero in decode, as in the reference.
+    ``remat``: in train mode, when a graph is being built, each layer is
+    checkpointed (recomputed in the backward)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"model_forward: unknown mode {mode!r}")
     x = embed(params["embed"], tokens, compute_dtype)
@@ -456,6 +484,8 @@ def model_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(x.dtype)
 
+    remat = remat and mode == "train" and torch.is_grad_enabled()
+    plan = current_plan()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for si, (kind, _) in enumerate(cfg.resolved_stages):
@@ -464,6 +494,11 @@ def model_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             if mode == "decode":
                 x, c, _ = apply_layer(p, x, cfg, kind, mode="decode",
                                       cache=cache[si][li], lengths=lengths)
+            elif remat:
+                x, aux = checkpoint(_train_layer, p, x, cfg, kind, plan,
+                                    use_reentrant=False)
+                c = None
+                stage_aux.append(aux)
             else:
                 x, c, aux = apply_layer(p, x, cfg, kind, mode=mode,
                                         max_cache_len=max_cache_len)
@@ -482,3 +517,25 @@ def model_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return {"logits": logits,
             "cache": new_caches if mode != "train" else None,
             "aux": aux_total}
+
+
+def lm_loss(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True, compute_dtype=torch.bfloat16):
+    """The reference's ``lm_loss``. batch: ``tokens``, ``targets`` (B, S)
+    integers, ``mask`` (B, S) float, optional ``prefix_embeds``. The loss
+    is taken on the text positions only (the prefix's are dropped): the
+    targets' fp32 log-probabilities, ``ce = −Σ ll·mask / (Σ mask + 1e-6)``
+    and ``loss = ce + aux``. Returns (loss, {"loss", "ce", "aux", "ppl"}),
+    ``ppl = exp(min(ce, 20))``."""
+    out = model_forward(params, batch["tokens"], cfg, mode="train",
+                        prefix_embeds=batch.get("prefix_embeds"), remat=remat,
+                        compute_dtype=compute_dtype)
+    n_text = batch["tokens"].shape[1]
+    logits = out["logits"][:, -n_text:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, batch["targets"].long()[..., None])[..., 0]
+    mask = batch["mask"]
+    ce = -(ll * mask).sum() / (mask.sum() + 1e-6)
+    loss = ce + out["aux"]
+    return loss, {"loss": loss, "ce": ce, "aux": out["aux"],
+                  "ppl": torch.exp(torch.clamp(ce, max=20.0))}

@@ -7,9 +7,12 @@ The scan. The reference runs the recurrence h_t = a_t h_{t-1} + bx_t as a
 loop over time in fp32, the same step ``mamba_decode`` takes, so a
 prefill and the same tokens decoded one at a time agree to the bit in
 the state; it rounds differently from the associative scan by a few
-fp32 ulps, inside the module tolerance. ``a`` and ``bx`` are fp32
-(B, S, d_inner, n): at hymba-1.5b's full width (d_inner 3200, n 16) that
-is 52 MB each a batch row at S = 256.
+fp32 ulps, inside the module tolerance, and so do its gradients against
+the reference's differentiated associative scan. The states are kept in
+a list and stacked once, so that autograd sees one node a step, not an
+in-place write into the whole (B, S, d_inner, n) tensor a step. ``a``
+and ``bx`` are fp32 (B, S, d_inner, n): at hymba-1.5b's full width
+(d_inner 3200, n 16) that is 52 MB each a batch row at S = 256.
 
 The conv state comes out of a prefill in the compute dtype and is kept
 in fp32 in the cache (``init_mamba_state``); the serving engine's slot
@@ -99,13 +102,11 @@ def mamba_forward(p: Params, x: torch.Tensor, ssm: SSMConfig):
     (y (B, S, d), state {"h": (B, di, n) fp32, "conv": (B, W-1, di)})."""
     x_c, z, conv_state = _in_and_gate(p, x, ssm)
     a, bx, c_out, d_skip = _ssm_params(p, x_c, ssm)
-    h = torch.empty_like(bx)
-    h_t = bx[:, 0]
-    h[:, 0] = h_t
+    hs = [bx[:, 0]]
     for t in range(1, x.shape[1]):
-        h_t = a[:, t] * h_t + bx[:, t]
-        h[:, t] = h_t
-    y = torch.einsum("bsdn,bsn->bsd", h, c_out)
+        hs.append(a[:, t] * hs[-1] + bx[:, t])
+    h_t = hs[-1]
+    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), c_out)
     return _out(p, y, x_c, z, d_skip, x.dtype), {"h": h_t, "conv": conv_state}
 
 

@@ -6,10 +6,14 @@ Keys are the reference's (``src/repro/train/checkpoint.py`` ``_flatten`` of
 a JAX ``TrainState``): a NamedTuple's fields and a dict's keys joined by
 "/", so a train state gives ``step``, ``params/...``, ``opt_state/step``,
 ``opt_state/m/...`` and ``opt_state/v/...``. A list in the tree (the
-Evoformer's per-block parameters and moments) is stored stacked along a
-leading axis, the reference's layer axis, as ``weights.params_to_numpy``
-stacks it. npz has no bf16 or fp8 codec: such leaves are stored as fp32
-(bf16 -> fp32 -> bf16 round-trips exactly) and cast back on restore.
+Evoformer's per-block parameters and moments, a decoder stage's layers)
+is stored stacked along a leading axis, the reference's layer axis, as
+``weights.params_to_numpy`` stacks it. A list of such lists (a decoder's
+stages, which the reference keeps as a Python list of stacked stages) is
+stored entry by entry under the reference's ``[i]`` keys
+(``params/stages/[0]/...``). npz has no bf16 or fp8 codec: such leaves
+are stored as fp32 (bf16 -> fp32 -> bf16 round-trips exactly) and cast
+back on restore.
 
 Crash-safe: writes land in a temp file (``.tmp_ckpt_*``) that is fsynced
 and atomically ``os.replace``d into place — a writer killed mid-write (the
@@ -57,6 +61,10 @@ def _items(tree):
     return list(tree.items())
 
 
+def _is_list_of_lists(tree) -> bool:
+    return isinstance(tree, list) and bool(tree) and isinstance(tree[0], list)
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     if t.dtype in _WIDENED:
@@ -68,6 +76,9 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     """Leaf key ("" for a leaf itself) -> numpy array."""
     if isinstance(tree, torch.Tensor):
         return {"": _host(tree)}
+    if _is_list_of_lists(tree):
+        return {f"[{i}]/{k}" if k else f"[{i}]": arr
+                for i, t in enumerate(tree) for k, arr in _flatten(t).items()}
     if isinstance(tree, (list, tuple)) and not _is_namedtuple(tree):
         per = [_flatten(t) for t in tree]
         return {k: np.stack([p[k] for p in per]) for k in per[0]}
@@ -90,6 +101,9 @@ def _restore_like(example, get: Callable[[str], np.ndarray], key: str = ""):
                              f"{tuple(example.shape)}")
         return torch.from_numpy(arr).to(device=example.device,
                                         dtype=example.dtype)
+    if _is_list_of_lists(example):
+        return [_restore_like(t, get, join(f"[{i}]"))
+                for i, t in enumerate(example)]
     if isinstance(example, (list, tuple)) and not _is_namedtuple(example):
         return [_restore_like(t, lambda k, i=i: get(k)[i], key)
                 for i, t in enumerate(example)]

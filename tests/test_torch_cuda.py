@@ -1027,3 +1027,57 @@ def test_lm_engine_serves_each_decoder_family_on_the_card(gen, arch):
     _assert_cpu_fp32_greedy(cpu, cfg, prompts, reqs)
     _, _, again, _, _ = _serve_on_the_card(cfg, 4)
     assert [r.generated for r in again] == [r.generated for r in reqs]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "yi-9b", "qwen1.5-32b",
+                                  "gemma3-27b", "llava-next-mistral-7b",
+                                  "musicgen-medium", "deepseek-moe-16b",
+                                  "deepseek-v2-236b", "hymba-1.5b",
+                                  "xlstm-125m"])
+def test_lm_train_step_on_the_card_matches_the_cpu(gen, arch):
+    """One training step of each decoder configuration, REDUCED:
+    ``make_train_step`` over ``lm_loss`` at fp32 compute (each layer
+    checkpointed), on the card and on the CPU from the same weights and
+    batch; the loss, gradient norm, and every parameter and moment after
+    the step within 1e-3·max(1, max|cpu|) (a learning rate of 1e-4, so
+    that a first AdamW step, about ``lr · sign(g)``, stays inside the
+    bound where a tiny gradient's sign differs). K1 launches 2 · n_layers + 1 in
+    the forward and 2 · n_layers in the recompute on musicgen-medium, no
+    kernel on the other nine."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.layers.params import tree_leaves, tree_map
+    from repro_torch.models.decoder import init_model, lm_loss
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.weights import random_params_like
+
+    cfg = get_config(arch, reduced_variant=True)
+    with torch.device("meta"):
+        skeleton = init_model(torch.Generator(), cfg)
+    cpu = random_params_like(skeleton, 5, device="cpu")
+    lb = next(lm_batches(vocab=cfg.vocab, batch=2, seq=32, seed=1))
+    states, metrics = {}, {}
+    for dev in ("cpu", "cuda"):
+        init, step = make_train_step(
+            lambda p, b, r: lm_loss(p, b, cfg, compute_dtype=torch.float32),
+            base_lr=1e-4, warmup_steps=1, total_steps=10)
+        params = tree_map(lambda t: t.to(dev), cpu)
+        _build.reset_launches()
+        states[dev], metrics[dev] = step(init(params), lm_batch(lb, cfg, dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = ({"layer_norm": 4 * cfg.n_layers + 1}
+            if cfg.norm == "layernorm" else {})
+    assert launches == want
+    for k in ("loss", "grad_norm"):
+        _close(metrics["cuda"][k].cpu(), metrics["cpu"][k], 1e-3)
+    assert float(metrics["cuda"]["nonfinite_skips"]) == 0.0
+    for tree in ("params", "m", "v"):
+        pick = (lambda s: s.params) if tree == "params" else (
+            lambda s, t=tree: getattr(s.opt_state, t))
+        for g, w in zip(tree_leaves(pick(states["cuda"])),
+                        tree_leaves(pick(states["cpu"]))):
+            if w.numel():
+                _close(g.cpu(), w, 1e-3)

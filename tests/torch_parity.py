@@ -15,6 +15,7 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.core.evoformer import DROPOUT_SITES
@@ -135,3 +136,158 @@ def assert_same_routing(rec, top_k: int, what: str = "") -> int:
         assert not bad.size, f"{what} call {i}: tokens {bad} route apart"
         held += int(sure.sum())
     return held
+
+
+# ---------------------------------------------------------------------------
+# Decoder LMs
+# ---------------------------------------------------------------------------
+
+def np_tree(tree):
+    """A JAX tree as numpy: floating leaves fp32, integer leaves as they
+    are."""
+    return jax.tree.map(
+        lambda x: np.asarray(jnp.asarray(x).astype(jnp.float32))
+        if jnp.issubdtype(x.dtype, jnp.floating) else np.asarray(x), tree)
+
+
+def decoder_weights(jdec, cfg, seed: int):
+    """The reference's init of ``cfg``, every leaf randomised: (JAX tree,
+    the port's tree on the CPU)."""
+    from repro_torch.weights import decoder_params_from_numpy, randomize_tree
+
+    tree = randomize_tree(np_tree(jdec.init_model(jax.random.PRNGKey(seed),
+                                                  cfg)), seed + 1)
+    return (jax.tree.map(jnp.asarray, tree),
+            decoder_params_from_numpy(tree, device="cpu"))
+
+
+def lm_batch_both(cfg, batch: int, seq: int, seed: int):
+    """Seeded tokens, next-token targets, a mask with about a fifth of the
+    positions off, and (for a modality configuration) random
+    ``prefix_embeds``: (JAX batch, port batch)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(batch, seq + 1)).astype(np.int32)
+    arrays = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+              "mask": (rng.random((batch, seq)) < 0.8).astype(np.float32)}
+    if cfg.modality and cfg.modality.n_prefix_tokens:
+        arrays["prefix_embeds"] = normal(
+            rng, (batch, cfg.modality.n_prefix_tokens, cfg.d_model))
+    return ({k: jnp.asarray(a) for k, a in arrays.items()},
+            {k: torch.as_tensor(a) for k, a in arrays.items()})
+
+
+@contextlib.contextmanager
+def reference_compute_dtype(jdec, dtype):
+    """Within the scope the reference's ``model_forward`` computes in
+    ``dtype`` (its ``lm_loss`` takes no compute dtype and runs bf16)."""
+    orig = jdec.model_forward
+
+    def forward(*args, **kw):
+        kw.setdefault("compute_dtype", dtype)
+        return orig(*args, **kw)
+
+    jdec.model_forward = forward
+    try:
+        yield
+    finally:
+        jdec.model_forward = orig
+
+
+def lm_loss_both(jdec, tdec, jcfg, tcfg, jp, tp, jb, tb, dtype: str):
+    """``lm_loss`` and its gradients in both packages at ``dtype``
+    compute: ((loss, metrics, grads as the reference's numpy tree) of the
+    port, the same of the reference)."""
+    from repro_torch.layers.params import tree_map
+    from repro_torch.weights import decoder_params_to_numpy
+
+    jdt, tdt = DTYPES[dtype]
+    with reference_compute_dtype(jdec, jdt):
+        (jl, jm), jg = jax.jit(jax.value_and_grad(
+            lambda p, b: jdec.lm_loss(p, b, jcfg), has_aux=True))(jp, jb)
+    live = tree_map(lambda t: t.detach().requires_grad_(True), tp)
+    tl, tm = tdec.lm_loss(live, tb, tcfg, compute_dtype=tdt)
+    tl.backward()
+    tg = tree_map(lambda t: torch.zeros_like(t) if t.grad is None else t.grad,
+                  live)
+    return ((tl.detach(), {k: v.detach() for k, v in tm.items()},
+             decoder_params_to_numpy(tg)), (jl, jm, np_tree(jg)))
+
+
+def assert_lm_loss_close(port, ref, tol: float, what: str):
+    """Loss, its metrics and every gradient leaf within ``tol``."""
+    (tl, tm, tg), (jl, jm, jg) = port, ref
+    assert_close(tl, jl, tol, f"{what} loss")
+    for k in ("loss", "ce", "aux", "ppl"):
+        assert_close(tm[k], jm[k], tol, f"{what} {k}")
+    got = jax.tree_util.tree_flatten_with_path(tg)[0]
+    want = jax.tree.leaves(jg)
+    assert len(got) == len(want)
+    for (path, g), w in zip(got, want):
+        assert_close(g, w, tol, f"{what} d{jax.tree_util.keystr(path)}")
+
+
+def _loss_and_grads(tdec, params, batch, cfg, remat):
+    from repro_torch.layers.params import tree_leaves, tree_map
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = tdec.lm_loss(live, batch, cfg, remat=remat)
+    loss.backward()
+    return loss.detach(), [t.grad for t in tree_leaves(live)]
+
+
+def assert_remat_changes_no_bit(jdec, tdec, arch: str):
+    """``remat=True`` (each layer checkpointed and recomputed in the
+    backward) against ``remat=False`` on the reduced ``arch``: the loss and
+    every gradient equal to the bit on the CPU, bf16 compute."""
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+
+    jc, tc = jget(arch, reduced_variant=True), tget(arch, reduced_variant=True)
+    _, tp = decoder_weights(jdec, jc, 2)
+    _, tb = lm_batch_both(tc, 2, 32, seed=5)
+    l1, g1 = _loss_and_grads(tdec, tp, tb, tc, remat=True)
+    l0, g0 = _loss_and_grads(tdec, tp, tb, tc, remat=False)
+    assert torch.equal(l1, l0)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(g1, g0))
+
+
+def assert_smoke_forward_and_train_step(tdec, arch: str):
+    """The port's counterpart of the reference's
+    ``test_models_smoke.py::test_smoke_forward_and_train_step``: the port's
+    own init of the reduced ``arch``, logits of the prefix and text
+    positions, finite, and a loss whose gradients are finite and not all
+    zero."""
+    from repro_torch.configs import get_config as tget
+
+    cfg = tget(arch, reduced_variant=True)
+    params = tdec.init_model(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 24)))
+    batch = {"tokens": toks, "targets": toks,
+             "mask": torch.ones((2, 24), dtype=torch.float32)}
+    p = cfg.modality.n_prefix_tokens if cfg.modality else 0
+    if p:
+        batch["prefix_embeds"] = torch.as_tensor(
+            rng.standard_normal((2, p, cfg.d_model)), dtype=torch.float32)
+    with torch.no_grad():
+        out = tdec.model_forward(params, toks, cfg, mode="train",
+                                 prefix_embeds=batch.get("prefix_embeds"))
+    assert out["logits"].shape == (2, 24 + p, cfg.vocab)
+    assert not torch.isnan(out["logits"]).any()
+    loss, grads = _loss_and_grads(tdec, params, batch, cfg, remat=True)
+    assert np.isfinite(float(loss))
+    gn = sum(float(g.abs().sum()) for g in grads if g is not None)
+    assert np.isfinite(gn) and gn > 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A test module that imports this fixture runs its torch ops on one
+    intra-op thread (restored after): its shapes are tiny, and the test
+    run's workers share the machine's cores, where many threads a worker
+    spend their time waiting on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
