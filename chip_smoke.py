@@ -97,6 +97,28 @@ Phases, each printing JSON lines:
  11. long kernels — K4 (one chunk of (a)), K5, K7 and K8 at the r = 2048
                shapes, whole on the card, held against their plain versions
                on a slice of rows.
+ 12. roofline — (last) each FULL-width path timed above against the
+               roofline of its work as ``roofline.analysis`` counts it on
+               the card (FLOPs of its matrix products, HBM bytes of its
+               ops' inputs and outputs, each fused op's own at its
+               boundary), at one and two blocks or layers of each kind,
+               extrapolated to the full depth: the folds at r = 256 and 384
+               and the training step, each under the default plan and
+               attention-oracle; the LM serve prefill (256 tokens) and
+               decode call (4 slots) of musicgen-medium and qwen2-1.5b;
+               the LM train step of qwen2-1.5b, musicgen-medium and
+               xlstm-125m. Each line has the counted FLOPs and bytes,
+               t_compute_s and t_memory_s against one H100's peaks, the
+               measured seconds (reused, not timed again), roofline_share
+               = max(t_compute, t_memory) / measured, which must lie in
+               (0, 1], and mfu (the model's FLOPs: 6 N D or 2 N D for the
+               LMs, AlphaFold's step counted without recomputation) and
+               hfu (the executed count) over measured x 989e12. The parity
+               phase's cut (2 blocks, fp32, default plan) is counted on
+               the card and on the host's CPU: equal. And
+               ``launch.dryrun``'s one-device peak of qwen2-1.5b's
+               training step at 4 x 512 tokens is held within 2x either
+               way of the lm train phase's measured peak.
      lm serve — (after smoke) the LM serving engine at full width, bf16
                compute on fp32 weights drawn on the card from a seed:
                musicgen-medium (48 layers, LayerNorm: K1 2 · 48 + 1 = 97
@@ -319,19 +341,17 @@ class Timer:
         return statistics.median(times)
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def bound(bytes_moved: int, ops: float, dtype: str) -> tuple[float, str]:
-    """Least time for the work: bytes over the memory rate, operations over
-    the peak rate of the inputs' type; the larger one, in ms."""
+def bound(cost) -> tuple[float, str]:
+    """Least time for one call's work, its ``roofline.analysis`` cost (the
+    one source of these bounds and of the paths' roofline): bytes over the
+    memory rate, operations over the peak rate of their type; the larger
+    one, in ms."""
     from repro_torch import device
 
     peak = {"float32": device.PEAK_FLOPS_FP32,
             "bfloat16": device.PEAK_FLOPS_BF16}
-    t_mem = bytes_moved / device.HBM_BW * 1e3
-    t_ops = ops / peak[dtype] * 1e3
+    t_mem = cost.bytes / device.HBM_BW * 1e3
+    t_ops = cost.ops / peak[cost.dtype] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -600,6 +620,7 @@ def kernel_phase(torch, timer, seen):
     from repro_torch.kernels.fused_softmax import fused_softmax_cuda
     from repro_torch.kernels.layer_norm import layer_norm_cuda
     from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
+    from repro_torch.roofline import analysis as roof
     from repro_torch.timing import cold_device_ms, device_ms, host_us
 
     gen = torch.Generator(device="cuda")
@@ -663,8 +684,7 @@ def kernel_phase(torch, timer, seen):
         timing = None
         if main:
             g_l, b_l = gamma.to(x.dtype), beta.to(x.dtype)
-            t_b, by = bound(nbytes(x, gamma, beta) + nbytes(x), 8.0 * x.numel(),
-                            "float32")
+            t_b, by = bound(roof.layer_norm_cost(x, gamma, beta))
             timing = {
                 "ms": timer(lambda: layer_norm_cuda(x, gamma, beta)),
                 "plain_ms": timer(lambda: ref.layer_norm_ref(x, gamma, beta)),
@@ -696,8 +716,7 @@ def kernel_phase(torch, timer, seen):
         timing = None
         if main:
             bg_l = bg.to(g.dtype)
-            t_b, by = bound(nbytes(g, bg, v) + nbytes(v), 6.0 * v.numel(),
-                            "float32")
+            t_b, by = bound(roof.bias_sigmoid_mul_cost(g, bg, v))
             timing = {
                 "ms": timer(lambda: bias_sigmoid_mul_cuda(g, bg, v)),
                 "plain_ms": timer(lambda: ref.bias_sigmoid_mul_ref(g, bg, v)),
@@ -787,8 +806,8 @@ def kernel_phase(torch, timer, seen):
             if nb:
                 am = (bias.view(nb, 1, h, sq, skv)
                       + am.view(nb, rep, 1, 1, skv)).reshape(n, h, sq, skv)
-            t_b, by = bound(nbytes(q, k, v, bias, mask, out, lse),
-                            4.0 * n * h * sq * skv * d, dt)
+            t_b, by = bound(roof.attention_cost(q, k, v, bias=bias,
+                                                mask=mask))
             timing = {
                 "ms": timer(lambda: flash_attention_cuda(q, k, v, bias, mask,
                                                          scale, groups)),
@@ -870,8 +889,7 @@ def kernel_phase(torch, timer, seen):
                 y = F.layer_norm(o, (c,), g_l, be_l)
                 return torch.sigmoid(g_lin + gb_l) * F.linear(y, w_t, bo_l)
 
-            t_b, by = bound(nbytes(a_lin, ga, *args[2:], out, mean, inv),
-                            2.0 * bsz * ni * nj * c * (nk + d), dt)
+            t_b, by = bound(roof.triangle_cost(*args))
             timing = {
                 "ms": timer(lambda: fused_triangle_cuda(*args)),
                 "plain_ms": timer(lambda: ref.triangle_mult_ref(*args)),
@@ -923,9 +941,7 @@ def kernel_phase(torch, timer, seen):
                 o = (o.float() / (norm[..., None, None] + 1e-3)).to(tdt)
                 return F.linear(o.reshape(o.shape[:3] + (c * c,)), w_t, b_l)
 
-            t_b, by = bound(nbytes(*args, out),
-                            2.0 * bsz * ni * nj * ns * (c * c + 1)
-                            + 2.0 * bsz * ni * nj * c * c * d, dt)
+            t_b, by = bound(roof.opm_cost(*args))
             timing = {
                 "ms": timer(lambda: fused_opm_cuda(*args)),
                 "plain_ms": timer(lambda: ref.outer_product_mean_ref(*args)),
@@ -1006,8 +1022,8 @@ def kernel_phase(torch, timer, seen):
         if main:
             # The least work: five S x S x D products (s, dp, dv, dq, dk);
             # the kernel recomputes s and dp in each of its sweeps.
-            t_b, by = bound(nbytes(q, k, v, out, do, lse, bias, mask, *got),
-                            10.0 * n * h * sq * skv * d, dt)
+            t_b, by = bound(roof.attention_bwd_cost(q, k, v, out, do, lse,
+                                                    bias, mask, got))
             lib_ms, lib_call = sdpa_backward_ms(q, k, v, bias, mask, do, scale)
             timing = {
                 "ms": timer(lambda: flash_attention_bwd_cuda(*args, need_dmask,
@@ -1078,8 +1094,7 @@ def kernel_phase(torch, timer, seen):
             # value=1/(1 - rate)), keep cast to x's dtype beforehand (the
             # main path passes no bias).
             keep_l = keep.to(x.dtype)
-            t_b, by = bound(nbytes(x, b, res, keep, got), 4.0 * x.numel(),
-                            "float32")
+            t_b, by = bound(roof.bias_dropout_add_cost(x, b, res, rate, keep))
             timing = {
                 "ms": timer(lambda: bias_dropout_add_cuda(x, b, res, keep, rate)),
                 "plain_ms": timer(lambda: ref.bias_dropout_add_ref(
@@ -1154,8 +1169,7 @@ def kernel_phase(torch, timer, seen):
                 return acc
 
             pre = logits()
-            t_b, by = bound(nbytes(x, bias, mask, got), 8.0 * x.numel(),
-                            "float32")
+            t_b, by = bound(roof.softmax_cost(x, bias, mask))
             timing = {
                 "ms": timer(lambda: fused_softmax_cuda(x, bias, mask, scale)),
                 "plain_ms": timer(lambda: ref.softmax_ref(x, bias, mask,
@@ -2239,6 +2253,7 @@ def long_kernel_phase(torch, timer, chunk: int):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_softmax import fused_softmax_cuda
     from repro_torch.kernels.triangle import fused_opm_cuda, fused_triangle_cuda
+    from repro_torch.roofline import analysis as roof
 
     r, h, d, s, bf = 2048, 4, 32, LONG_SHAPE["n_seq"], torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -2254,9 +2269,9 @@ def long_kernel_phase(torch, timer, chunk: int):
 
     rows = []
 
-    def record(kernel, case, shape, err, rel, ms, bound_args, plain_ms,
+    def record(kernel, case, shape, err, rel, ms, cost, plain_ms,
                library_ms, library_call, rows_held):
-        t_b, by = bound(*bound_args)
+        t_b, by = bound(cost)
         row = {"phase": "long_kernel", "kernel": kernel, "case": case,
                "dtype": "bfloat16", "shape": list(shape), "max_abs_err": err,
                "max_rel_err": rel, "tol": TOL[kernel]["bfloat16"],
@@ -2286,8 +2301,7 @@ def long_kernel_phase(torch, timer, chunk: int):
     record("flash_attention_fwd", "r2048 triangle site", (n, r, r, h, d),
            err, rel, timer(lambda: flash_attention_cuda(q, k, v, bias, mask,
                                                         scale)),
-           (nbytes(q, k, v, bias, mask, out) + 4 * n * h * r,
-            4.0 * n * h * r * r * d, "bfloat16"),
+           roof.attention_cost(q, k, v, bias=bias, mask=mask),
            timer(lambda: ref.attention_ref(*sl)),
            timer(lambda: F.scaled_dot_product_attention(
                qb, kb, vb, attn_mask=am, scale=scale)),
@@ -2307,7 +2321,7 @@ def long_kernel_phase(torch, timer, chunk: int):
     record("fused_softmax", f"r2048 triangle chunk of {n}", (n, h, r, r),
            rel_err(got[:held], want)[0], rel,
            timer(lambda: fused_softmax_cuda(x, bias, mask, scale)),
-           (nbytes(x, bias, mask, got), 8.0 * x.numel(), "float32"),
+           roof.softmax_cost(x, bias, mask),
            timer(lambda: ref.softmax_ref(x[:held], bias, mask[:held], scale)),
            timer(lambda: torch.softmax(pre, -1)),
            "torch.softmax(fp32 logits, -1), the logits summed beforehand",
@@ -2343,8 +2357,7 @@ def long_kernel_phase(torch, timer, chunk: int):
 
     record("triangle_mult", "r2048 outgoing", (1, r, r, r, c, c), err, rel,
            timer(lambda: fused_triangle_cuda(*args)),
-           (nbytes(a_lin, ga, *args[2:], out) + 8 * r * r,
-            2.0 * r * r * c * (r + c), "bfloat16"),
+           roof.triangle_cost(*args),
            timer(lambda: ref.triangle_mult_ref(*sl)), timer(composition),
            "cuBLAS composition: einsum (permute + bmm) + F.layer_norm + "
            "F.linear + gate", held)
@@ -2371,8 +2384,7 @@ def long_kernel_phase(torch, timer, chunk: int):
 
     record("outer_product_mean", "r2048", (1, s, r, r, c, dz), err, rel,
            timer(lambda: fused_opm_cuda(a, b_, omask, omask, w, obias)),
-           (nbytes(a, b_, omask, omask, w, obias, out),
-            2.0 * r * r * c * c * (s + dz), "bfloat16"),
+           roof.opm_cost(a, b_, omask, omask, w, obias),
            timer(lambda: ref.outer_product_mean_ref(*sl)),
            timer(opm_composition),
            "cuBLAS composition: einsum + mask norm + matmul", held)
@@ -3119,11 +3131,11 @@ def lm_bf16_gate(torch, params, cfg, prompt) -> dict:
                                                    whole_f32)[1]}
 
 
-def lm_serve_one(torch, arch: str, k: int) -> dict:
+def lm_serve_one(torch, arch: str, k: int) -> tuple[dict, list]:
     """``ServingEngine`` serving ``arch`` at full width: the phase's eight
     requests (the canary under the oracle plan), after an uncounted
     warm-up request; then the bf16 plan gate (``lm_bf16_gate``). Returns
-    the main path's launch counts."""
+    the main path's launch counts and the engine's record of its calls."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
@@ -3182,7 +3194,7 @@ def lm_serve_one(torch, arch: str, k: int) -> dict:
              f"{LM_BF16_TOL}")
     del engine, params
     torch.cuda.empty_cache()
-    return {n: launches.get(n, 0) for n in TOL}
+    return {n: launches.get(n, 0) for n in TOL}, record
 
 
 def _one_layer_of_each_kind(params, cfg):
@@ -3418,11 +3430,14 @@ def lm_fp32_point(torch) -> None:
     del params
 
 
-def lm_serve_phase(torch) -> dict:
-    """The ``lm serve`` phase; returns each configuration's launches."""
+def lm_serve_phase(torch) -> tuple[dict, dict]:
+    """The ``lm serve`` phase; returns each configuration's launches and
+    each LM_ARCHS model's record of its calls."""
     t0 = time.perf_counter()
-    launches = {f"lm serve {arch}": lm_serve_one(torch, arch, k)
-                for k, arch in enumerate(LM_ARCHS)}
+    launches, records = {}, {}
+    for k, arch in enumerate(LM_ARCHS):
+        launches[f"lm serve {arch}"], records[arch] = lm_serve_one(
+            torch, arch, k)
     lm_fp32_point(torch)
     for k, (arch, stages, max_seq) in enumerate(LM_FAMILIES):
         t1 = time.perf_counter()
@@ -3431,7 +3446,7 @@ def lm_serve_phase(torch) -> dict:
         emit({"phase": "lm serve seconds", "arch": arch,
               "seconds": time.perf_counter() - t1})
     emit({"phase": "lm serve seconds", "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, records
 
 
 def _bit_digest(torch, state, metrics) -> list:
@@ -3448,11 +3463,12 @@ def _bit_digest(torch, state, metrics) -> list:
             + sums.tolist())
 
 
-def lm_train_one(torch, arch: str, k: int) -> dict:
+def lm_train_one(torch, arch: str, k: int) -> tuple[dict, dict]:
     """``arch`` trained at full width and depth through
     ``launch.train.train``: LM_TRAIN_STEPS steps, each checked as it ends
     (finite loss and gradient norm, no skip, K1's launches), then two
-    identical steps from the last state. Returns the main path's launches."""
+    identical steps from the last state. Returns the main path's launches
+    and the median step's seconds and the peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.kernels import _build
@@ -3531,7 +3547,8 @@ def lm_train_one(torch, arch: str, k: int) -> dict:
              f"gradient norm, no skip, K1 {per_step} a step)")
     if others:
         fail(f"lm train {arch}: another kernel launched: {others}")
-    return {n: launches.get(n, 0) for n in TOL}
+    return ({n: launches.get(n, 0) for n in TOL},
+            {"step_s": warm, "peak_memory_bytes": peak})
 
 
 def _cut_for_training(params, cfg):
@@ -3655,19 +3672,306 @@ def lm_train_cli(torch) -> dict:
     return row
 
 
-def lm_train_phase(torch) -> dict:
-    """The ``lm train`` phase; returns each configuration's launches."""
+def lm_train_phase(torch) -> tuple[dict, dict]:
+    """The ``lm train`` phase; returns each configuration's launches and
+    what ``lm_train_one`` measured of it."""
     t0 = time.perf_counter()
-    launches = {}
+    launches, measured = {}, {}
     for k, arch in enumerate(LM_TRAIN_ARCHS):
         t1 = time.perf_counter()
-        launches[f"lm train {arch}"] = lm_train_one(torch, arch, k)
+        launches[f"lm train {arch}"], measured[arch] = lm_train_one(
+            torch, arch, k)
         lm_train_points(torch, arch, k)
         emit({"phase": "lm train seconds", "arch": arch,
               "seconds": time.perf_counter() - t1})
     lm_train_cli(torch)
     emit({"phase": "lm train seconds", "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, measured
+
+
+# ---------------------------------------------------------------------------
+# The roofline of each FULL-width path
+# ---------------------------------------------------------------------------
+
+# The dry-run's one-device peak for a training step, held against the one
+# the lm train phase measured: within this factor either way (the
+# reference's PeakBytesWithin headroom).
+PEAK_MODEL_HEADROOM = 2.0
+ROOFLINE_ARCH = "qwen2-1.5b"
+
+
+def _counter(torch, fn):
+    """The ``roofline.analysis`` counter of one call of ``fn``."""
+    from repro_torch.roofline import analysis
+
+    torch.cuda.synchronize()
+    with analysis.counting() as c:
+        fn()
+    torch.cuda.synchronize()
+    return c
+
+
+def _count(torch, fn) -> tuple[float, float]:
+    """(FLOPs, HBM bytes) of one call of ``fn``, counted on the card."""
+    c = _counter(torch, fn)
+    return c.flops, c.hbm_bytes
+
+
+def _deeper(one, two, n: int) -> tuple[float, float]:
+    """Counts at depth 1 and 2, extrapolated to depth ``n`` (each further
+    block or layer adds what the second added)."""
+    return tuple(a + (n - 1) * (b - a) for a, b in zip(one, two))
+
+
+def _roof_line(path: str, counted, measured_s: float, model_flops: float,
+               **extra) -> dict:
+    """One ``roofline`` line: the counted work against one H100's peaks
+    (989 TFLOP/s bf16, 3.35 TB/s), the measured seconds, the share of them
+    the roofline explains, and the model and executed FLOPs as shares of
+    the card's bf16 peak. Fails unless 0 < share <= 1."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
+    flops, nbytes = counted
+    t_c, t_m = flops / PEAK_FLOPS_BF16, nbytes / HBM_BW
+    share = max(t_c, t_m) / measured_s
+    row = {"phase": "roofline", "path": path, "flops": flops,
+           "hbm_bytes": nbytes, "t_compute_s": t_c, "t_memory_s": t_m,
+           "bottleneck": "compute" if t_c >= t_m else "memory",
+           "measured_s": measured_s, "roofline_share": share,
+           "mfu": model_flops / (measured_s * PEAK_FLOPS_BF16),
+           "hfu": flops / (measured_s * PEAK_FLOPS_BF16),
+           "model_flops": model_flops, **extra}
+    emit(row)
+    if not 0.0 < share <= 1.0:
+        fail(f"roofline {path}: share {share:.3g} outside (0, 1]: a time "
+             "under the roofline means the count is wrong")
+    return row
+
+
+def _fold_counts(torch, tree, batches, measured) -> None:
+    """The served folds (r = 256 and 384, 48 blocks, n_recycle = 3) under
+    the default plan and attention-oracle, counted on the card at 1 and 2
+    blocks; the training step under both plans likewise, and without
+    recomputation (the model FLOPs)."""
+    from repro_torch.configs import FULL
+    from repro_torch.core.alphafold import alphafold_train_loss
+    from repro_torch.exec import FastFold
+    from repro_torch.exec.plan import use_plan
+    from repro_torch.train import make_train_step
+    from repro_torch.weights import params_from_numpy
+
+    nb = FULL.evoformer.n_blocks
+
+    def cfg_at(n):
+        return dataclasses.replace(FULL, evoformer=dataclasses.replace(
+            FULL.evoformer, n_blocks=n))
+
+    params = {n: params_from_numpy(
+        dict(tree, evoformer=_slice_tree(tree["evoformer"], n)),
+        device="cuda") for n in (1, 2)}
+    for plan in ("default", "attention-oracle"):
+        for name in ("r256_s128", "r384_s128"):
+            batch = batches[[r for r, _ in REQUESTS].index(name)]
+            counts = [_count(torch, lambda n=n: FastFold(
+                cfg_at(n), plan=plan_of(plan)).serve(params[n], [batch]))
+                for n in (1, 2)]
+            counted = _deeper(*counts, nb)
+            _roof_line(f"fold {name} {plan}", counted,
+                       measured["serve"][plan][name], counted[0],
+                       n_blocks=nb, n_recycle=FULL.n_recycle,
+                       counted_at_blocks=[1, 2])
+    batch = train_batches(1)[0]
+
+    def step_count(n, plan, remat=True):
+        ff = FastFold(cfg_at(n), plan=plan_of(plan))
+        loss_fn = ff.loss_fn
+        if not remat:
+            def loss_fn(p, b, rng):
+                with use_plan(plan_of(plan)):
+                    return alphafold_train_loss(p, ff.batch_to_device(b),
+                                                ff.config, generator=rng,
+                                                remat=False)
+        init, step = make_train_step(loss_fn)
+        state = init(ff.init(seed=SEED))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return _count(torch, lambda: step(state, batch, gen))
+
+    model = _deeper(step_count(1, "default", False),
+                    step_count(2, "default", False), nb)
+    for plan in ("default", "attention-oracle"):
+        counted = _deeper(step_count(1, plan), step_count(2, plan), nb)
+        _roof_line(f"train r256_s128 {plan}", counted,
+                   measured["train"][plan], model[0], n_blocks=nb,
+                   n_recycle=FULL.n_recycle, remat=True,
+                   model_flops_counted="the same step without "
+                                       "recomputation, default plan",
+                   counted_at_blocks=[1, 2])
+
+
+def _lm_counts(torch, measured) -> None:
+    """The LM serve prefill (256 tokens into 512 rows) and decode call
+    (4 slots) of each LM_ARCHS model, and the LM train step (4 x 512) of
+    each LM_TRAIN_ARCHS model, counted on the card at one and two layers
+    of each kind (``launch.dryrun``'s depth runs) with weights drawn on
+    the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.layers.params import count_params
+    from repro_torch.models.decoder import init_cache, init_model
+    from repro_torch.roofline import analysis
+    from repro_torch.serving import engine as eng
+
+    def n_params(cfg):
+        with torch.device("meta"):
+            return count_params(init_model(torch.Generator(), cfg))
+
+    def depth_counts(cfg, setup):
+        """``setup(cut)`` draws the weights (uncounted) and returns the
+        call to count."""
+        def measure(cut):
+            return dryrun.Run(*_count(torch, setup(cut)))
+        run, depths = dryrun._depth_runs(cfg, measure)
+        return (run.flops, run.hbm_bytes), depths
+
+    for k, arch in enumerate(LM_ARCHS):
+        cfg = get_config(arch)
+        record = measured["lm serve"][arch]
+        prompt_len = max(LM_PROMPT_LENS)
+        prompt = torch.as_tensor(lm_prompts(cfg)[0][:prompt_len],
+                                 dtype=torch.long, device="cuda")[None]
+
+        def prefill(cut):
+            params = lm_params(torch, cut, SEED + 40 + k)
+            return lambda: eng._prefill_step(
+                params, prompt, cfg=cut, plan=plan_of("default"),
+                max_cache_len=LM_MAX_SEQ)
+
+        def decode(cut):
+            params = lm_params(torch, cut, SEED + 40 + k)
+            cache = init_cache(cut, LM_SLOTS, LM_MAX_SEQ, device="cuda")
+            toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long,
+                               device="cuda")
+            lengths = torch.full((LM_SLOTS,), LM_MAX_SEQ // 2,
+                                 dtype=torch.long, device="cuda")
+            return lambda: eng._decode_step(params, toks, cache, lengths,
+                                            cfg=cut, plan=plan_of("default"))
+
+        n = n_params(cfg)
+        for kind, fn, tokens in (("prefill", prefill, prompt_len),
+                                 ("decode", decode, LM_SLOTS)):
+            times = [c[4] for c in record if c[0] == kind
+                     and c[1] == "default" and c[2] == tokens]
+            counted, depths = depth_counts(cfg, fn)
+            shape = ShapeConfig(kind, prompt_len if kind == "prefill"
+                                else LM_MAX_SEQ,
+                                1 if kind == "prefill" else LM_SLOTS, kind)
+            _roof_line(f"lm serve {arch} {kind}", counted,
+                       statistics.median(times),
+                       analysis.model_flops(shape, n), tokens=tokens,
+                       calls_timed=len(times), params=n,
+                       counted_at_layers=depths)
+    for k, arch in enumerate(LM_TRAIN_ARCHS):
+        cfg = get_config(arch)
+        batch = launch_train.lm_batch(next(lm_batches(
+            vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+            seed=SEED + 80)), cfg, "cuda")
+
+        def train(cut):
+            init, step = launch_train.make_lm_step(
+                cut, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                seq=LM_TRAIN_SEQ)
+            state = init(lm_params(torch, cut, SEED + 70 + k))
+            return lambda: step(state, batch)
+
+        n = n_params(cfg)
+        counted, depths = depth_counts(cfg, train)
+        shape = ShapeConfig("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+        _roof_line(f"lm train {arch}", counted,
+                   measured["lm train"][arch]["step_s"],
+                   analysis.model_flops(shape, n),
+                   tokens=LM_TRAIN_BATCH * LM_TRAIN_SEQ, params=n,
+                   counted_at_layers=depths)
+
+
+def _count_parity(torch, tree, batches) -> None:
+    """The parity phase's cut (FULL widths, 2 blocks, no recycling, fp32,
+    the first request, the default plan with one stated budget) counted on
+    the card, where the kernels run, and on the host's CPU, where the
+    plain versions run, the request's features already on each device:
+    the counts must be equal."""
+    from repro_torch.configs import FULL
+    from repro_torch.exec import FastFold
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.weights import params_from_numpy
+
+    cfg = _cut(FULL, 2)
+    cut = dict(tree, evoformer=_slice_tree(tree["evoformer"], 2))
+    plan = plan_of("default").with_memory(hbm_budget=HBM_BYTES)
+    counters = {}
+    for dev in ("cuda", "cpu"):
+        ff = FastFold(cfg, device=dev, dtype=torch.float32, plan=plan)
+        params = params_from_numpy(cut, device=dev)
+        batch = ff.batch_to_device(batches[0])
+        counters[dev] = _counter(torch, lambda: ff.forward(params, batch))
+    card, host = ((c.flops, c.hbm_bytes) for c in counters.values())
+    emit({"phase": "roofline count parity", "cut": {"n_blocks": 2,
+                                                     "n_recycle": 0},
+          "width": "FULL", "dtype": "float32", "request": REQUESTS[0][0],
+          "plan": "default", "card": {"flops": card[0], "hbm_bytes": card[1]},
+          "cpu": {"flops": host[0], "hbm_bytes": host[1]},
+          "equal": card == host,
+          "ops_that_differ": {
+              k: {dev: c.by_op.get(k) for dev, c in counters.items()}
+              for k in set(counters["cuda"].by_op) | set(counters["cpu"].by_op)
+              if counters["cuda"].by_op.get(k) != counters["cpu"].by_op.get(k)}})
+    if card != host:
+        fail(f"roofline: the card counts {card}, the CPU {host}, on the "
+             "parity cut")
+
+
+def _peak_prediction(torch, measured) -> None:
+    """``launch.dryrun``'s one-device prediction of the peak of
+    ROOFLINE_ARCH's training step at the lm train phase's 4 x 512 tokens,
+    held against the peak that phase measured."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_of
+
+    shape = ShapeConfig(f"train_{LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}",
+                        LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    rec = dryrun.run_one(ROOFLINE_ARCH, shape.name, shape=shape,
+                         mesh=mesh_of((1, 1)))
+    predicted = rec["memory"]["per_device_bytes"]
+    peak = measured["lm train"][ROOFLINE_ARCH]["peak_memory_bytes"]
+    ratio = predicted / peak
+    emit({"phase": "roofline peak prediction", "arch": ROOFLINE_ARCH,
+          "shape": shape.name, "mesh": rec["mesh"],
+          "predicted_bytes": predicted, "state_bytes": rec["memory"][
+              "state_bytes"], "activation_bytes": rec["memory"][
+              "activation_bytes"], "measured_peak_bytes": peak,
+          "ratio": ratio, "headroom": PEAK_MODEL_HEADROOM,
+          "dryrun_s": rec["run_s"]})
+    if not 1 / PEAK_MODEL_HEADROOM <= ratio <= PEAK_MODEL_HEADROOM:
+        fail(f"roofline: the dry-run's peak {predicted} is {ratio:.3g} x the "
+             f"measured {peak}")
+
+
+def roofline_phase(torch, tree, batches, measured) -> None:
+    """Each FULL-width path the phases above timed, against the roofline of
+    its counted work; the count on the card against the CPU's; the
+    dry-run's peak against a measured one. ``measured``: what those phases
+    measured, by phase ("serve" and "train" by plan, "lm serve" and "lm
+    train" by arch); nothing is timed again."""
+    t0 = time.perf_counter()
+    _count_parity(torch, tree, batches)
+    _fold_counts(torch, tree, batches, measured)
+    _lm_counts(torch, measured)
+    _peak_prediction(torch, measured)
+    torch.cuda.empty_cache()
+    emit({"phase": "roofline seconds", "seconds": time.perf_counter() - t0})
 
 
 def dap_phases(torch, tree, batches, seen):
@@ -3738,15 +4042,21 @@ def main() -> int:
 
     del timer
     launches["serve"], latencies = serve_phase(torch, tree, batches)
-    launches["serve attention-oracle"], _ = serve_phase(
+    launches["serve attention-oracle"], oracle_latencies = serve_phase(
         torch, tree, batches, "attention-oracle", baseline=latencies)
+    measured = {"serve": {"default": latencies,
+                          "attention-oracle": oracle_latencies}}
     smoke_phase(torch)
-    launches.update(lm_serve_phase(torch))
-    launches.update(lm_train_phase(torch))
+    lm_launches, measured["lm serve"] = lm_serve_phase(torch)
+    launches.update(lm_launches)
+    lm_launches, measured["lm train"] = lm_train_phase(torch)
+    launches.update(lm_launches)
     parity_phase(torch, tree, batches)
     launches["train"], nothing = train_phase(torch)
-    launches["train attention-oracle"], _ = train_phase(
+    launches["train attention-oracle"], oracle_train = train_phase(
         torch, "attention-oracle", n_steps=2)
+    measured["train"] = {"default": nothing["warm_step_s"],
+                         "attention-oracle": oracle_train["warm_step_s"]}
     launches["train dots"] = train_dots_phase(torch, nothing)
     resume_phase(torch)
     for plan in ("default", "attention-oracle"):
@@ -3754,6 +4064,7 @@ def main() -> int:
             train_parity_phase(torch, tree, plan, point)
     chunk = long_phase(torch, tree)
     long_kernel_phase(torch, Timer(torch), chunk)
+    roofline_phase(torch, tree, batches, measured)
 
     # One line for every ported kernel, at its heaviest main-path shape;
     # its launches are those of its own path (KERNEL_PATHS), and it lists

@@ -5,7 +5,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.alphafold import (  # noqa: F401
-    FULL, MINI, SMOKE, AlphaFoldConfig, EvoformerConfig, StructureConfig)
+    FINE_TUNING, FULL, INITIAL_TRAINING, MINI, SMOKE, AlphaFoldConfig,
+    EvoformerConfig, StructureConfig)
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES, MLAConfig, MoEConfig, ModalityConfig, ModelConfig,
     SSMConfig, ShapeConfig, reduced)

@@ -105,6 +105,10 @@ FULL = AlphaFoldConfig(
     n_recycle=3,
 )
 
+# Paper Table I shapes.
+INITIAL_TRAINING = {"n_res": 256, "n_seq": 128, "batch": 128}
+FINE_TUNING = {"n_res": 384, "n_seq": 512, "batch": 128}
+
 MINI = AlphaFoldConfig(
     evoformer=EvoformerConfig(d_msa=64, d_pair=32, msa_heads=4, pair_heads=2,
                               head_dim=16, opm_dim=16, tri_mult_dim=32,

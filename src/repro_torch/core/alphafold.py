@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.alphafold import AlphaFoldConfig, EvoformerConfig
 from repro_torch.core.dap import whole_model_evoformer
@@ -76,7 +75,10 @@ def init_alphafold(generator: torch.Generator, cfg: AlphaFoldConfig) -> Params:
 
 
 def _one_hot(x: torch.Tensor, n: int, dtype) -> torch.Tensor:
-    return F.one_hot(x.long(), n).to(dtype)
+    """``jax.nn.one_hot``'s form, a comparison with ``arange(n)``: the same
+    ops on every device (``torch.nn.functional.one_hot`` checks its range on
+    the CPU only)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).to(dtype)
 
 
 def embed_inputs(params, batch, cfg: AlphaFoldConfig):

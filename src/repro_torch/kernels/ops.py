@@ -44,6 +44,12 @@ device thread, which does not see the caller's scope) takes the forward's
 leg. Where no graph is being built (``inference_mode``, ``no_grad``, or no
 input that needs a gradient) an op calls its forward directly, so inference
 does no autograd work.
+
+While ``roofline.analysis.counting()`` is on, each entry point and each
+backward reports its own work (``counted``, ``counted_call``; the costs in
+``roofline.analysis``) and nothing inside it is counted again, so a count
+is the same whether the kernel or the plain version ran. Off, that costs
+one read of a module global.
 """
 from __future__ import annotations
 
@@ -63,6 +69,8 @@ from repro_torch.kernels.layer_norm import layer_norm_cuda
 from repro_torch.kernels.triangle import (BWD_J_BLOCK, fused_opm_cuda,
                                           fused_triangle_cuda, opm_bwd,
                                           triangle_mult_bwd)
+from repro_torch.roofline import analysis as _roof
+from repro_torch.roofline.analysis import counted, counted_call
 
 # The reference's envelopes (src/repro/kernels/ops.py): attention head dim
 # and KV length, the triangle's channels, the OPM's channel.
@@ -113,6 +121,17 @@ def _builds_graph(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
+def _laid_out(ts):
+    """The plain version's outputs laid out as the kernel's (contiguous),
+    so what follows an op runs, and counts, the same on either route. It
+    copies only an output that keeps a transposed input's layout. On the
+    card at the main path's shapes no plain version runs under the
+    default or attention-oracle plan; under oracle only LayerNorm's
+    outputs on transposed views are copied, as the kernel route copies
+    their inputs (``scripts/torch_plain_layouts.py``)."""
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
 def _lead_sum(t: torch.Tensor) -> torch.Tensor:
     """Sum over every axis but the last."""
     return t.sum(dim=tuple(range(t.ndim - 1)))
@@ -124,7 +143,7 @@ def _lead_sum(t: torch.Tensor) -> torch.Tensor:
 
 def _ln_fwd(x, gamma, beta, eps, kernel):
     if not kernel:
-        return ref.layer_norm_ref(x, gamma, beta, eps)
+        return ref.layer_norm_ref(x, gamma, beta, eps).contiguous()
     return layer_norm_cuda(x.contiguous(), gamma.float().contiguous(),
                            beta.float().contiguous(), eps)
 
@@ -139,20 +158,25 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gamma = ctx.saved_tensors
-        xf, gf = x.float(), g.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mean).square().mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(var + ctx.eps)
-        xhat = (xf - mean) * inv
-        dgamma = _lead_sum(gf * xhat)
-        dbeta = _lead_sum(gf)
-        gg = gf * gamma.float()
-        dx = inv * (gg - gg.mean(dim=-1, keepdim=True)
-                    - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
-        return (dx.to(x.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(ctx.beta_dtype), None, None)
+        return counted_call("layer_norm_bwd", _ln_bwd, ctx, x, gamma, g)
 
 
+def _ln_bwd(ctx, x, gamma, g):
+    xf, gf = x.float(), g.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + ctx.eps)
+    xhat = (xf - mean) * inv
+    dgamma = _lead_sum(gf * xhat)
+    dbeta = _lead_sum(gf)
+    gg = gf * gamma.float()
+    dx = inv * (gg - gg.mean(dim=-1, keepdim=True)
+                - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
+    return (dx.to(x.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(ctx.beta_dtype), None, None)
+
+
+@counted("layer_norm", _roof.layer_norm_cost)
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis; any leading shape."""
@@ -168,7 +192,7 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def _bsm_fwd(g, bg, v, kernel):
     if not kernel:
-        return ref.bias_sigmoid_mul_ref(g, bg, v)
+        return ref.bias_sigmoid_mul_ref(g, bg, v).contiguous()
     return bias_sigmoid_mul_cuda(g.contiguous(), bg.float().contiguous(),
                                  v.contiguous())
 
@@ -182,13 +206,19 @@ class _BiasSigmoidMul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         g, bg, v = ctx.saved_tensors
-        gradf = grad.float()
-        s = torch.sigmoid(g.float() + bg.float())
-        dv = (gradf * s).to(v.dtype)
-        dg_f = gradf * v.float() * s * (1.0 - s)
-        return dg_f.to(g.dtype), _lead_sum(dg_f).to(bg.dtype), dv, None
+        return counted_call("bias_sigmoid_mul_bwd", _bsm_bwd, ctx, g, bg, v,
+                            grad)
 
 
+def _bsm_bwd(ctx, g, bg, v, grad):
+    gradf = grad.float()
+    s = torch.sigmoid(g.float() + bg.float())
+    dv = (gradf * s).to(v.dtype)
+    dg_f = gradf * v.float() * s * (1.0 - s)
+    return dg_f.to(g.dtype), _lead_sum(dg_f).to(bg.dtype), dv, None
+
+
+@counted("bias_sigmoid_mul", _roof.bias_sigmoid_mul_cost)
 def bias_sigmoid_mul(g: torch.Tensor, bg: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """sigmoid(g + bg) * v; g and v share shape (..., C), bg is (C,)."""
@@ -204,7 +234,7 @@ def bias_sigmoid_mul(g: torch.Tensor, bg: torch.Tensor,
 
 def _softmax_fwd(x, bias, mask, scale, kernel):
     if not kernel:
-        return ref.softmax_ref(x, bias, mask, scale)
+        return ref.softmax_ref(x, bias, mask, scale).contiguous()
     return fused_softmax_cuda(
         x.contiguous(), bias.contiguous() if bias is not None else None,
         mask.float().contiguous() if mask is not None else None, scale)
@@ -223,22 +253,26 @@ class _Softmax(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        """The reference's ``_softmax_bwd``: dlogits = y·(g − Σ g·y) in fp32;
-        dx = dlogits·scale; dbias summed over the N/B rows that share a bias
-        row; dmask summed over H and R."""
         (y,) = ctx.saved_tensors
-        yf, gf = y.float(), g.float()
-        dlogits = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
-        dx = (dlogits * ctx.scale).to(y.dtype)
-        dbias = dmask = None
-        if ctx.bias_meta is not None and ctx.needs_input_grad[1]:
-            b, dt = ctx.bias_meta
-            n = y.shape[0]
-            dbias = dlogits.reshape((b, n // b) + dlogits.shape[1:]).sum(dim=1)
-            dbias = dbias.to(dt)
-        if ctx.mask_dtype is not None and ctx.needs_input_grad[2]:
-            dmask = dlogits.sum(dim=(1, 2)).to(ctx.mask_dtype)
-        return dx, dbias, dmask, None, None
+        return counted_call("fused_softmax_bwd", _softmax_bwd, ctx, y, g)
+
+
+def _softmax_bwd(ctx, y, g):
+    """The reference's ``_softmax_bwd``: dlogits = y·(g − Σ g·y) in fp32;
+    dx = dlogits·scale; dbias summed over the N/B rows that share a bias
+    row; dmask summed over H and R."""
+    yf, gf = y.float(), g.float()
+    dlogits = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
+    dx = (dlogits * ctx.scale).to(y.dtype)
+    dbias = dmask = None
+    if ctx.bias_meta is not None and ctx.needs_input_grad[1]:
+        b, dt = ctx.bias_meta
+        n = y.shape[0]
+        dbias = dlogits.reshape((b, n // b) + dlogits.shape[1:]).sum(dim=1)
+        dbias = dbias.to(dt)
+    if ctx.mask_dtype is not None and ctx.needs_input_grad[2]:
+        dmask = dlogits.sum(dim=(1, 2)).to(ctx.mask_dtype)
+    return dx, dbias, dmask, None, None
 
 
 def _softmax(x, bias, mask, scale, kernel):
@@ -247,6 +281,7 @@ def _softmax(x, bias, mask, scale, kernel):
     return _softmax_fwd(x, bias, mask, scale, kernel)
 
 
+@counted("fused_softmax", _roof.softmax_cost)
 def fused_softmax(x: torch.Tensor, bias: torch.Tensor | None = None,
                   mask: torch.Tensor | None = None,
                   scale: float = 1.0) -> torch.Tensor:
@@ -316,7 +351,8 @@ def fused_attention_supported(q_shape, kv_len: int | None = None,
 def _attn_fwd(q, k, v, bias, mask, scale, kernel, kv_tile=0):
     """(out, lse) of the 4D form."""
     if not kernel:
-        return ref.attention_ref(q, k, v, bias, mask, scale, kv_tile=kv_tile)
+        return _laid_out(ref.attention_ref(q, k, v, bias, mask, scale,
+                                           kv_tile=kv_tile))
     if bias is not None:
         bias = bias.contiguous()
     if mask is not None:
@@ -337,20 +373,27 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask, out, lse = ctx.saved_tensors
-        need_dmask = mask is not None and ctx.needs_input_grad[4]
-        if ctx.bwd_kernel:
-            bias_c = bias.contiguous() if bias is not None else None
-            mask_c = mask.contiguous() if mask is not None else None
-            dq, dk, dv, db, dm = flash_attention_bwd_cuda(
-                q, k, v, out, g.to(q.dtype).contiguous(), lse, bias_c, mask_c,
-                ctx.scale, need_dmask)
-        else:
-            dq, dk, dv, db, dm = ref.attention_bwd_ref(
-                q, k, v, g, out, lse, bias, mask, ctx.scale)
-        if db is not None:
-            db = db.to(bias.dtype)
-        dm = dm.to(mask.dtype) if need_dmask else None
-        return dq, dk, dv, db, dm, None, None, None, None
+        return counted_call(
+            "fused_attention_bwd", _attn_bwd, ctx, q, k, v, bias, mask, out,
+            lse, g, cost=lambda grads: _roof.attention_bwd_cost(
+                q, k, v, out, g, lse, bias, mask, grads[:5]))
+
+
+def _attn_bwd(ctx, q, k, v, bias, mask, out, lse, g):
+    need_dmask = mask is not None and ctx.needs_input_grad[4]
+    if ctx.bwd_kernel:
+        bias_c = bias.contiguous() if bias is not None else None
+        mask_c = mask.contiguous() if mask is not None else None
+        dq, dk, dv, db, dm = flash_attention_bwd_cuda(
+            q, k, v, out, g.to(q.dtype).contiguous(), lse, bias_c, mask_c,
+            ctx.scale, need_dmask)
+    else:
+        dq, dk, dv, db, dm = _laid_out(ref.attention_bwd_ref(
+            q, k, v, g, out, lse, bias, mask, ctx.scale))
+    if db is not None:
+        db = db.to(bias.dtype)
+    dm = dm.to(mask.dtype) if need_dmask else None
+    return dq, dk, dv, db, dm, None, None, None, None
 
 
 def _attention(q, k, v, bias, mask, scale, kv_tile):
@@ -362,6 +405,7 @@ def _attention(q, k, v, bias, mask, scale, kv_tile):
     return _attn_fwd(q, k, v, bias, mask, scale, kernel, kv_tile)[0]
 
 
+@counted("fused_attention", _roof.attention_cost)
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bias: torch.Tensor | None = None,
                     mask: torch.Tensor | None = None,
@@ -440,9 +484,9 @@ def _tri_fwd(a_lin, ga, mask, b_full, gamma, beta, w_out, b_out, g_lin,
              g_bias, eps, kernel, tile=0):
     """(out, mean, inv)."""
     if not kernel:
-        return ref.triangle_mult_ref(a_lin, ga, mask, b_full, gamma, beta,
-                                     w_out, b_out, g_lin, g_bias, eps,
-                                     tile=tile)
+        return _laid_out(ref.triangle_mult_ref(a_lin, ga, mask, b_full, gamma,
+                                               beta, w_out, b_out, g_lin,
+                                               g_bias, eps, tile=tile))
     # a_lin and ga go in as they lie (the column halves of the merged
     # projections); the kernel reads the mask through its strides.
     f32 = lambda t: t.float().contiguous()
@@ -467,12 +511,18 @@ class _TriangleMult(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        grads = triangle_mult_bwd(ctx.eps, ctx.saved_tensors, dout,
-                                  j_block=ctx.j_block,
-                                  need_dmask=ctx.needs_input_grad[2])
-        return (*grads, None, None, None)
+        return counted_call("fused_triangle_mult_bwd", _tri_bwd, ctx,
+                            ctx.saved_tensors, dout, inner_flops=True)
 
 
+def _tri_bwd(ctx, saved, dout):
+    grads = triangle_mult_bwd(ctx.eps, saved, dout,
+                              j_block=ctx.j_block,
+                              need_dmask=ctx.needs_input_grad[2])
+    return (*grads, None, None, None)
+
+
+@counted("fused_triangle_mult", _roof.triangle_cost)
 def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
                         mask: torch.Tensor, b_full: torch.Tensor,
                         gamma: torch.Tensor, beta: torch.Tensor,
@@ -507,7 +557,7 @@ def fused_triangle_mult(a_lin: torch.Tensor, ga: torch.Tensor,
 def _opm_fwd(a, b_full, mask_a, mask_b, w, bias, kernel, tile=0):
     if not kernel:
         return ref.outer_product_mean_ref(a, b_full, mask_a, mask_b, w, bias,
-                                          tile=tile)
+                                          tile=tile).contiguous()
     return fused_opm_cuda(a.contiguous(), b_full.contiguous(),
                           mask_a.float().contiguous(),
                           mask_b.float().contiguous(),
@@ -525,11 +575,17 @@ class _OuterProductMean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        need = ctx.needs_input_grad
-        return (*opm_bwd(ctx.saved_tensors, dout, j_block=ctx.j_block,
-                         need_dmask=need[2] or need[3]), None, None)
+        return counted_call("fused_outer_product_mean_bwd", _opm_bwd, ctx,
+                            ctx.saved_tensors, dout, inner_flops=True)
 
 
+def _opm_bwd(ctx, saved, dout):
+    need = ctx.needs_input_grad
+    return (*opm_bwd(saved, dout, j_block=ctx.j_block,
+                     need_dmask=need[2] or need[3]), None, None)
+
+
+@counted("fused_outer_product_mean", _roof.opm_cost)
 def fused_outer_product_mean(a: torch.Tensor, b_full: torch.Tensor,
                              mask_a: torch.Tensor, mask_b: torch.Tensor,
                              w: torch.Tensor, bias: torch.Tensor, *,
@@ -560,7 +616,7 @@ def _contig(t: torch.Tensor) -> torch.Tensor:
 
 def _bda_fwd(x, b, residual, keep, rate, kernel):
     if not kernel:
-        return ref.bias_dropout_add_ref(x, b, residual, keep, rate)
+        return ref.bias_dropout_add_ref(x, b, residual, keep, rate).contiguous()
     if b is not None:
         b = _contig(b.float())
     return bias_dropout_add_cuda(_contig(x), b, _contig(residual), keep, rate)
@@ -577,13 +633,18 @@ class _BiasDropoutAdd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (keep,) = ctx.saved_tensors
-        dx_f = g.float()
-        if keep is not None:
-            dx_f = dx_f * keep.float() / (1.0 - ctx.rate)
-        db = _lead_sum(dx_f).to(ctx.b_dtype) if ctx.b_dtype is not None else None
-        return dx_f.to(ctx.x_dtype), db, g.to(ctx.res_dtype), None, None, None
+        return counted_call("bias_dropout_add_bwd", _bda_bwd, ctx, keep, g)
 
 
+def _bda_bwd(ctx, keep, g):
+    dx_f = g.float()
+    if keep is not None:
+        dx_f = dx_f * keep.float() / (1.0 - ctx.rate)
+    db = _lead_sum(dx_f).to(ctx.b_dtype) if ctx.b_dtype is not None else None
+    return dx_f.to(ctx.x_dtype), db, g.to(ctx.res_dtype), None, None, None
+
+
+@counted("bias_dropout_add", _roof.bias_dropout_add_cost)
 def bias_dropout_add(x: torch.Tensor, b: torch.Tensor | None,
                      residual: torch.Tensor, rate: float = 0.0,
                      keep: torch.Tensor | None = None) -> torch.Tensor:
