@@ -97,7 +97,19 @@ Phases, each printing JSON lines:
  11. long kernels — K4 (one chunk of (a)), K5, K7 and K8 at the r = 2048
                shapes, whole on the card, held against their plain versions
                on a slice of rows.
- 12. roofline — (last) each FULL-width path timed above against the
+ 12. analysis — repro-lint over ``src/repro_torch`` (clean), then the
+               contract matrix of ``repro_torch.analysis`` (five cells under
+               the default and oracle presets) on two gloo ranks sharing the
+               card: a line a row with its modeled bytes, each rank's
+               allocator peak above what it held, the ratio, collectives per
+               block and rank 0's launches (K1, K2 and K4 in the default
+               plan's Evoformer cells, none under oracle); any violation
+               fails the run;
+ 13. examples — each ``examples/torch_*.py`` once on the card at its
+               smallest arguments, in its own process, the four side by
+               side (the mini trainer twice: 2 steps with checkpoints, then
+               a resume to step 3): each exits 0 and prints its key lines;
+ 14. roofline — (last) each FULL-width path timed above against the
                roofline of its work as ``roofline.analysis`` counts it on
                the card (FLOPs of its matrix products, HBM bytes of its
                ops' inputs and outputs, each fused op's own at its
@@ -3690,6 +3702,111 @@ def lm_train_phase(torch) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# The analysis gate and the examples
+# ---------------------------------------------------------------------------
+
+ANALYSIS_RANKS = 2
+# The contract cells' widths lie outside the flash attention, triangle and
+# OPM kernels (as SMOKE's): under the default plan the Evoformer cells take
+# the materialized branches, with these kernels; under oracle none.
+ANALYSIS_KERNELS = ("layer_norm", "bias_sigmoid_mul", "fused_softmax")
+
+
+def analysis_phase(torch) -> None:
+    """``repro_torch.analysis`` on the card: repro-lint over the port's
+    tree, then the contract matrix (every cell under default and oracle)
+    on two gloo ranks sharing the card. One line a row: modeled bytes, the
+    allocator's peak of each rank above what it held before the cell, the
+    ratio, collectives per block and rank 0's kernel launches. Any finding
+    or violation fails the run."""
+    from repro_torch.analysis import cells, lint
+
+    t0 = time.perf_counter()
+    findings = lint.lint_tree()
+    emit({"phase": "analysis lint", "report": lint.render_report(findings)})
+    if findings:
+        fail(f"repro-lint: {len(findings)} finding(s)")
+    try:
+        violations, rows = cells.run_matrix(
+            ("default", "oracle"), ranks=ANALYSIS_RANKS, device="cuda",
+            timeout_s=DAP_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"analysis: {e}")
+    bad = [v.render() for v in violations]
+    for row in rows:
+        cell = row["cell"].split("/")[0]
+        emit({"phase": "analysis", **{k: row[k] for k in (
+            "cell", "modeled_bytes", "peak_bytes", "peak_bytes_by_rank",
+            "ratio", "collectives", "launches", "violations")},
+            "peak_limits": list(cells.PEAK_LIMITS[cell]),
+            "collective_limits": list(cells.COLLECTIVE_BUDGETS[cell])})
+        if row["preset"] == "oracle" and row["launches"]:
+            bad.append(f"{row['cell']}: kernels launched under oracle")
+        if (row["preset"] == "default" and cell != "triangle_opm"
+                and not all(row["launches"].get(k) for k in
+                            ANALYSIS_KERNELS)):
+            bad.append(f"{row['cell']}: not every one of {ANALYSIS_KERNELS}"
+                       f" launched: {row['launches']}")
+    emit({"phase": "analysis seconds", "seconds": time.perf_counter() - t0,
+          "rows": len(rows), "violations": bad})
+    if bad:
+        fail(f"analysis: {bad}")
+
+
+def _run_example(script: str, args: list, keys: tuple) -> dict:
+    """``examples/<script> args`` in its own process, as a user runs it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    return {"phase": "examples", "script": script, "args": args,
+            "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "missing": [k for k in keys if k not in proc.stdout],
+            "output": proc.stdout.splitlines()[-8:],
+            "stderr": proc.stderr[-2000:] if proc.returncode else ""}
+
+
+def examples_phase(torch) -> None:
+    """Each ``examples/torch_*.py`` once on the card at its smallest
+    arguments, as a user runs it (its own process, ``PYTHONPATH=src``),
+    the four side by side: the quickstart; the mini trainer for 2 steps
+    with a checkpoint a step, then to step 3 resuming from the newest; the
+    DAP long inference on 1, 2 and 4 ranks sharing the card; the LM server
+    under its chaos schedule. Each must exit 0 and print its key lines."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    ckpt = ROOT / "build" / "example_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    train = ["--ckpt-every", "1", "--ckpt-dir", str(ckpt)]
+    chains = [
+        [("torch_quickstart.py", [], ("predicted CA coords", "generated:"))],
+        [("torch_train_alphafold_mini.py", ["--steps", "2"] + train,
+          ("device=cuda", "ckpt_00000002.npz")),
+         ("torch_train_alphafold_mini.py", ["--steps", "3"] + train,
+          ("resumed from", "step    3"))],
+        [("torch_distributed_long_inference.py", ["--n-res", "32"],
+          ("ranks=4 rank=3 n_res=32",))],
+        [("torch_serve_llm.py", ["--requests", "4", "--max-new", "4",
+                                 "--chaos"], ("chaos: injected",
+                                              "served 4"))],
+    ]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(chains)) as pool:
+        done = list(pool.map(lambda chain: [_run_example(*r) for r in chain],
+                             chains))
+    bad = []
+    for row in (r for chain in done for r in chain):
+        emit(row)
+        if row["rc"] != 0 or row["missing"]:
+            bad.append(row["script"])
+    emit({"phase": "examples seconds", "seconds": time.perf_counter() - t0})
+    if bad:
+        fail(f"examples: {bad}")
+
+
+# ---------------------------------------------------------------------------
 # The roofline of each FULL-width path
 # ---------------------------------------------------------------------------
 
@@ -4064,6 +4181,8 @@ def main() -> int:
             train_parity_phase(torch, tree, plan, point)
     chunk = long_phase(torch, tree)
     long_kernel_phase(torch, Timer(torch), chunk)
+    analysis_phase(torch)
+    examples_phase(torch)
     roofline_phase(torch, tree, batches, measured)
 
     # One line for every ported kernel, at its heaviest main-path shape;

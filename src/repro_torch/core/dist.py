@@ -75,16 +75,26 @@ from repro_torch.kernels import ops
 
 # kind -> pass -> {"calls", "bytes"}: the collectives of each rank.
 COLLECTIVES: dict[str, dict[str, dict[str, int]]] = {}
+# The result shape of each all-gather the rank ran, in order.
+GATHER_SHAPES: list[tuple[int, ...]] = []
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+    GATHER_SHAPES.clear()
 
 
 def collectives() -> dict:
     """A copy of the counts, {kind: {pass: {"calls": n, "bytes": b}}}."""
     return {k: {p: dict(v) for p, v in ps.items()}
             for k, ps in COLLECTIVES.items()}
+
+
+def collective_shapes() -> list[tuple[int, ...]]:
+    """The result shape of every all-gather run since the last
+    ``reset_collectives``, in order (those of an all-reduce's second half
+    too): what ``analysis.contracts.NoMergedAllGather`` reads."""
+    return list(GATHER_SHAPES)
 
 
 def _count(kind: str, phase: str, nbytes: float) -> None:
@@ -409,6 +419,7 @@ class ProcessGroupDist(_KernelHooks):
             shape = list(x.shape)
             shape[axis] *= n
             _count(kind, phase, xc.numel() * xc.element_size() * (n - 1))
+            GATHER_SHAPES.append(tuple(shape))
             return Pending(work, recv,
                            lambda r: _place_chunks(r, x, axis, shape), xc)
         if kind == "reduce_scatter":
@@ -555,8 +566,12 @@ def _rank_main(fn, rank, world_size, init_file, args, results, threads):
         out = pickle.dumps(fn(rank, world_size, init_file, *args),
                            protocol=pickle.HIGHEST_PROTOCOL)
         results.put((rank, True, out))
-    except BaseException:
+    except BaseException as err:
+        # The rank's boundary: every failure goes to the parent, which
+        # fails the run; an interrupt or exit then goes on.
         results.put((rank, False, traceback.format_exc()))
+        if not isinstance(err, Exception):
+            raise
     finally:
         if tdist.is_initialized():
             tdist.destroy_process_group()
@@ -581,6 +596,8 @@ def run_ranks(fn, world_size: int, *args, timeout_s: float = 300.0,
                  for r in range(world_size)]
         for p in procs:
             p.start()
+        # Host orchestration of rank processes, not model code:
+        # repro-lint: disable=R003
         deadline = time.monotonic() + timeout_s
         error = None
         try:
@@ -594,6 +611,8 @@ def run_ranks(fn, world_size: int, *args, timeout_s: float = 300.0,
                     if dead:
                         error = (f"rank {dead[0]} exited with code "
                                  f"{procs[dead[0]].exitcode}")
+                    # Host orchestration, not model code:
+                    # repro-lint: disable=R003
                     elif time.monotonic() > deadline:
                         error = (f"ranks {sorted(set(range(world_size)) - set(out))}"
                                  f" still running after {timeout_s:.0f} s")

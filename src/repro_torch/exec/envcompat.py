@@ -12,6 +12,9 @@ copy of the reference's ``exec/envcompat.py``.
   REPRO_FAULT_SEED=<int>           the default seed of a FaultInjector
                                    (``resilience/faults.py``)
 
+  CUDA_HOME, CUDA_PATH             where the kernels' build looks for nvcc
+                                   first (``kernels/_build.py``)
+
 The flags layer on top of the preset. The plan is built when asked for,
 never at import, so a variable set after import takes effect.
 
@@ -72,3 +75,9 @@ def fault_seed() -> int | None:
     stays confined to this module."""
     v = os.environ.get("REPRO_FAULT_SEED")
     return int(v) if v else None
+
+
+def cuda_home() -> str | None:
+    """The CUDA toolkit's root from CUDA_HOME, else CUDA_PATH (None when
+    neither is set): where ``kernels/_build.find_nvcc`` looks first."""
+    return os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.exec import envcompat
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -130,7 +132,7 @@ def stream_handle(t: torch.Tensor) -> int:
 
 
 def find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    home = envcompat.cuda_home()
     for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
             Path("/usr/local/cuda/bin/nvcc")]:
         if cand.is_file():

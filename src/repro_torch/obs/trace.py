@@ -149,6 +149,7 @@ class Tracer:
             yield span_id
         # status-only observer: re-raises unconditionally, so the typed
         # fault hierarchy passes through untouched
+        # repro-lint: disable=R002
         except BaseException:
             status = "error"
             raise

@@ -41,7 +41,8 @@ def _port_files():
                                          ROOT / "scripts" / "torch_train_alphafold.py",
                                          ROOT / "scripts" / "torch_lm_bf16_spread.py",
                                          # What spawned test ranks import.
-                                         ROOT / "tests" / "torch_dist_cases.py"]
+                                         ROOT / "tests" / "torch_dist_cases.py",
+                                         ] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path):

@@ -332,3 +332,52 @@ def hangs_in_a_collective(rank, world, init_file):
     else:
         import time
         time.sleep(3600)
+
+
+# ---------------------------------------------------------------------------
+# test_torch_analysis.py
+# ---------------------------------------------------------------------------
+
+def merged_gather_control(rank, world, init_file):
+    """The controls of the analysis contracts, on the port's collectives.
+    A naive program that flattened (B, G) into one lead of B*G, sharded it
+    and gathered the whole representation back, beside the right program
+    that shards and gathers G; and the contract cells' DAP stack run once
+    and twice (a stack that doubles its collectives); and the evoformer_grad
+    cell with ``torch.autograd.grad`` a no-op (a backward that does
+    nothing). Returns the all-gather shapes of each program, the stack's
+    logs and the grad cell's record."""
+    from repro_torch.analysis import cells
+    from repro_torch.core.dap import dap_evoformer_stack, shard_dap_inputs
+
+    d = _group(rank, world, init_file)
+    b, g, s, dm = 2, 8, 16, 8
+    x = torch.randn((b, g, s, dm), generator=torch.Generator().manual_seed(0))
+    out = {}
+    D.reset_collectives()
+    merged = x.reshape(b * g, s, dm)
+    d.all_gather(d.shard(merged, axis=0) * 2.0, axis=0)
+    out["naive"] = D.collective_shapes()
+    D.reset_collectives()
+    d.all_gather(d.shard(x, axis=1) * 2.0, axis=1)
+    out["sharded_g"] = D.collective_shapes()
+
+    params = cells._evo_params("cpu")
+    args = shard_dap_inputs(None, *cells._evo_inputs("cpu"))
+    fn = dap_evoformer_stack(None, cells.CFG, remat=False)
+    for times in (1, 2):
+        D.reset_collectives()
+        with torch.no_grad():
+            for _ in range(times):
+                fn(params, *args)
+        out[f"stack x{times}"] = D.collectives()
+
+    grad = torch.autograd.grad
+    torch.autograd.grad = lambda *args, **kwargs: None
+    try:
+        out["grad without backward"], = cells.cell_evoformer_grad(
+            "default", D.WholeModelDist(), torch.device("cpu"))
+    finally:
+        torch.autograd.grad = grad
+    D.reset_collectives()
+    return out
