@@ -15,6 +15,14 @@ forward keeps live outside the Evoformer block
 (``memory.autochunk.outside_block_bytes``). Knobs set by hand and
 ``auto_chunk=False`` opt out. The recycling loop is a Python loop.
 
+Spans (``repro_torch.obs``; no-ops with no tracer scoped):
+``alphafold.plan`` around the chunk plan (its ``ChunkPlan`` as
+attributes), ``alphafold.pass`` around each recycling iteration (index,
+last, grad), and inside one ``alphafold.embed``, ``evoformer.stack``
+(n_blocks, remat), ``structure.module`` and ``alphafold.heads``. No span
+opens inside an Evoformer block: a checkpointed block recomputes on
+autograd's thread, where spans are no-ops.
+
 Dynamic Axial Parallelism (the reference's ``GspmdDist`` role): under a
 plan whose ``ParallelPolicy`` is ``"gspmd"`` (``core.dist.WholeModelDist``
 on a process group) the embedding, structure module, heads and loss run on
@@ -44,6 +52,7 @@ from repro_torch.layers.params import Params, dense, init_dense
 from repro_torch.memory.autochunk import (ChunkPlan, apply_plan,
                                           evoformer_chunk_plan,
                                           outside_block_bytes)
+from repro_torch.obs import trace as obs
 
 RELPOS_K = 32
 N_DIST_BINS = 64
@@ -143,29 +152,37 @@ def alphafold_iteration(params, batch, prev, cfg: AlphaFoldConfig, *,
     if dist is None:
         dist = current_plan().parallel.make_dist()
     dt = cfg.compute_dtype
-    msa, pair = embed_inputs(params, batch, cfg)
-    msa, pair = embed_recycle(params, msa, pair, prev, cfg)
-    msa = msa.to(dt)
-    pair = pair.to(dt)
+    with obs.span("alphafold.embed"):
+        msa, pair = embed_inputs(params, batch, cfg)
+        msa, pair = embed_recycle(params, msa, pair, prev, cfg)
+        msa = msa.to(dt)
+        pair = pair.to(dt)
 
     seq_mask = batch["seq_mask"]
     pair_mask = seq_mask[:, :, None] * seq_mask[:, None, :]
-    msa, pair = _evoformer(params["evoformer"], msa, pair, batch["msa_mask"],
-                           seq_mask, pair_mask, cfg=cfg.evoformer,
-                           keeps=keeps, remat=remat, dist=dist)
+    with obs.span("evoformer.stack", n_blocks=cfg.evoformer.n_blocks,
+                  remat=int(remat)):
+        msa, pair = _evoformer(params["evoformer"], msa, pair,
+                               batch["msa_mask"], seq_mask, pair_mask,
+                               cfg=cfg.evoformer, keeps=keeps, remat=remat,
+                               dist=dist)
 
-    single = dense(params["single_proj"], msa[:, 0].float())
-    coords, frames, traj = structure_module(params["structure"], single,
-                                            pair.float(), seq_mask,
-                                            cfg.structure)
+    with obs.span("structure.module"):
+        single = dense(params["single_proj"], msa[:, 0].float())
+        coords, frames, traj = structure_module(params["structure"], single,
+                                                pair.float(), seq_mask,
+                                                cfg.structure)
+    with obs.span("alphafold.heads"):
+        msa_logits = dense(params["msa_head"], msa.float())
+        distogram_logits = dense(params["dist_head"], pair.float())
     return {
         "msa": msa,
         "pair": pair,
         "coords": coords,
         "frames": frames,
         "traj": traj,
-        "msa_logits": dense(params["msa_head"], msa.float()),
-        "distogram_logits": dense(params["dist_head"], pair.float()),
+        "msa_logits": msa_logits,
+        "distogram_logits": distogram_logits,
     }
 
 
@@ -176,20 +193,24 @@ def planned_evoformer(cfg: AlphaFoldConfig, batch_shape, *, device,
     ``device`` runs under the current plan, the AutoChunk plan that filled
     it (None with ``auto_chunk`` off), and the budget the planner got: the
     fold's budget less ``outside_block_bytes``."""
-    plan = current_plan()
-    dist = plan.parallel.make_dist()
-    evo = plan.memory.apply(cfg.evoformer)
-    b, s, r = batch_shape
-    budget = (hbm_budget if hbm_budget is not None
-              else plan.memory.hbm_budget or hbm_budget_bytes(device))
-    budget -= sum(outside_block_bytes(evo, batch=b, n_seq=s, n_res=r,
-                                      dtype=cfg.compute_dtype).values())
-    if not evo.auto_chunk:
-        return evo, None, budget
-    chunks = evoformer_chunk_plan(
-        evo, batch=b, n_seq=s, n_res=r, dap=dist.axis_size,
-        budget_bytes=budget, device=device, dtype=cfg.compute_dtype)
-    return apply_plan(evo, chunks), chunks, budget
+    with obs.span("alphafold.plan"):
+        plan = current_plan()
+        dist = plan.parallel.make_dist()
+        evo = plan.memory.apply(cfg.evoformer)
+        b, s, r = batch_shape
+        budget = (hbm_budget if hbm_budget is not None
+                  else plan.memory.hbm_budget or hbm_budget_bytes(device))
+        budget -= sum(outside_block_bytes(evo, batch=b, n_seq=s, n_res=r,
+                                          dtype=cfg.compute_dtype).values())
+        if not evo.auto_chunk:
+            return evo, None, budget
+        chunks = evoformer_chunk_plan(
+            evo, batch=b, n_seq=s, n_res=r, dap=dist.axis_size,
+            budget_bytes=budget, device=device, dtype=cfg.compute_dtype)
+        if obs.current_tracer() is not None:
+            obs.annotate(**{f.name: int(getattr(chunks, f.name))
+                            for f in dataclasses.fields(chunks)})
+        return apply_plan(evo, chunks), chunks, budget
 
 
 def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
@@ -226,24 +247,30 @@ def alphafold_forward(params, batch, cfg: AlphaFoldConfig, *,
         )
 
     def recycle(prev):
-        for _ in range(n_recycle):
-            out = alphafold_iteration(params, batch, prev, cfg, keeps=keeps,
-                                      dist=dist)
-            prev = (out["msa"][:, 0].float(), out["pair"].float(),
-                    out["coords"])
-            # Only prev crosses into the next pass (outside_block_bytes).
-            del out
+        for i in range(n_recycle):
+            with obs.span("alphafold.pass", index=i, last=0,
+                          grad=int(torch.is_grad_enabled())):
+                out = alphafold_iteration(params, batch, prev, cfg,
+                                          keeps=keeps, dist=dist)
+                prev = (out["msa"][:, 0].float(), out["pair"].float(),
+                        out["coords"])
+                # Only prev crosses into the next pass (outside_block_bytes).
+                del out
         return prev
+
+    def last_pass(prev, **kw):
+        with obs.span("alphafold.pass", index=n_recycle, last=1,
+                      grad=int(torch.is_grad_enabled())):
+            return alphafold_iteration(params, batch, prev, cfg, dist=dist,
+                                       **kw)
 
     if not train:
         keeps = None
         with torch.inference_mode():
-            return alphafold_iteration(params, batch, recycle(zeros_prev()),
-                                       cfg, dist=dist)
+            return last_pass(recycle(zeros_prev()))
     with torch.no_grad():
         prev = recycle(zeros_prev())
-    return alphafold_iteration(params, batch, prev, cfg, keeps=keeps,
-                               remat=remat, dist=dist)
+    return last_pass(prev, keeps=keeps, remat=remat)
 
 
 def draw_dropout_keeps(cfg: AlphaFoldConfig, batch_shape, generator,

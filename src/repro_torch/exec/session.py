@@ -20,6 +20,9 @@ device, a compute dtype and an ``ExecutionPlan`` once.
     long_fold = FastFold(FULL, plan=ExecutionPlan(memory=MemoryPolicy(
         hbm_budget=40 << 30)))        # AutoChunk plans against 40 GiB
 
+``serve`` opens one ``fastfold.serve`` span a request (``repro_torch.obs``;
+a no-op with no tracer scoped), the root of that fold's spans.
+
 ``device=None`` means the card and raises where there is none;
 ``device="cpu"`` runs every kernel's plain PyTorch version. ``plan=None``
 binds the plan current when the facade is built (the innermost
@@ -57,6 +60,7 @@ from repro_torch.core.alphafold import (alphafold_forward,
 from repro_torch.device import resolve_device
 from repro_torch.exec.plan import ExecutionPlan, current_plan, use_plan
 from repro_torch.layers.params import tree_map
+from repro_torch.obs import trace as obs
 
 # The features the forward reads, and those the training loss adds.
 FEATURES = ("msa", "msa_mask", "residue_index", "aatype", "seq_mask")
@@ -121,7 +125,13 @@ class FastFold:
         if len(plans) != len(batches):
             raise ValueError(
                 f"serve: {len(batches)} batches but {len(plans)} plans")
-        return [self.forward(params, b, plan=p) for b, p in zip(batches, plans)]
+        outs = []
+        for b, p in zip(batches, plans):
+            n_batch, n_seq, n_res = b["msa"].shape
+            with obs.span("fastfold.serve", batch=n_batch, n_seq=n_seq,
+                          n_res=n_res):
+                outs.append(self.forward(params, b, plan=p))
+        return outs
 
     def train_loss(self, params, batch: Mapping, generator=None, *,
                    n_recycle: int | None = None,

@@ -9,6 +9,9 @@ not rebuilt within one checkout.
 
 The launch counters live here too: each kernel wrapper adds one to its
 entry right after its kernel launched, and nowhere else.
+
+A build runs under the ``kernels.build`` span (``repro_torch.obs``), whose
+``kernels`` attribute names the sources compiled.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.exec import envcompat
+from repro_torch.obs import trace as obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -160,28 +164,34 @@ def build_all() -> dict[str, Path]:
     source, all started together. Returns each kernel's library path."""
     todo = [n for n in SIGNATURES if not library_path(n).exists()]
     if todo:
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Each library is written under a temporary name and renamed when
-        # complete, so a build that was cut off never leaves a library.
-        tmp = {n: library_path(n).with_suffix(f".tmp{os.getpid()}")
-               for n in todo}
-        procs = {n: subprocess.Popen(nvcc_command(nvcc, n, tmp[n]),
-                                     stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True)
-                 for n in todo}
-        errors = []
-        for n, proc in procs.items():
-            out, _ = proc.communicate()
-            BUILD_LOG[n] = out
-            if proc.returncode != 0:
-                errors.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n"
-                              f"{out}")
-            else:
-                os.replace(tmp[n], library_path(n))
-        if errors:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        with obs.span("kernels.build", kernels=",".join(todo)):
+            _build(todo)
     return {n: library_path(n) for n in SIGNATURES}
+
+
+def _build(todo: list[str]) -> None:
+    """Compile the kernels ``todo``, one ``nvcc`` each, all at once."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Each library is written under a temporary name and renamed when
+    # complete, so a build that was cut off never leaves a library.
+    tmp = {n: library_path(n).with_suffix(f".tmp{os.getpid()}")
+           for n in todo}
+    procs = {n: subprocess.Popen(nvcc_command(nvcc, n, tmp[n]),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for n in todo}
+    errors = []
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[n] = out
+        if proc.returncode != 0:
+            errors.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n"
+                          f"{out}")
+        else:
+            os.replace(tmp[n], library_path(n))
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
 
 
 def entry(name: str):

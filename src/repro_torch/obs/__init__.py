@@ -55,10 +55,13 @@ Kinds and their required fields:
                                          terminal (done|failed) per
                                          queued uid; ``reconcile``
                                          enforces it
-    train_step  step, dur_ns, tokens,    one step: host dispatch time
-                metrics                  (no sync), optional tokens/step,
-                                         metrics resolved at
-                                         serialization time
+    train_step  step, dur_ns, tokens,    one step: its host time, which
+                metrics                  ends after the step's one wait
+                                         for the device (the guard's
+                                         ``ok.cpu()``, span
+                                         ``train.wait``), optional
+                                         tokens/step, metrics resolved
+                                         at serialization time
     jit_entry   key, cache               one call through a plan-keyed
                                          jit site; extra distinct keys
                                          per site bump the
@@ -71,6 +74,17 @@ Adding a span to a new subsystem
    alias keeps call sites short and greppable).
 2. Wrap host-side phases with ``with obs.span("mysys.phase", key=val):``
    — free when unscoped, nested automatically when inside another span.
+   Attributes are ints, floats and strings, cheap to build (they are
+   built even when no tracer is scoped), never tensors. What the body
+   learns goes in with ``obs.annotate(key=val)``.
+   While a tracer is scoped and ``torch.profiler`` records, the span also
+   opens a ``record_function`` range of its name: the profiler's trace then
+   holds it on the device trace's clock, around the kernels its body
+   launched. With no tracer nothing enters the profiler.
+   Spans are host-thread phases: a span opened inside a backward or a
+   checkpointed block's recompute runs on autograd's device thread, where
+   no tracer is scoped, and is a no-op. Put spans around the call that
+   runs the backward (``torch.autograd.grad``), not inside it.
 3. Time device calls with ``obs.timed_call("mysys.kernel", fn, *args)``
    to get the dispatch/execute split; note it adds one device
    synchronise, so only use it on paths that already wait for the device
@@ -92,15 +106,15 @@ from repro_torch.obs.events import (KINDS, REQUEST_PHASES, SCHEMA_VERSION,
                               TERMINAL_PHASES, read_jsonl, validate_event,
                               validate_events)
 from repro_torch.obs.report import (aggregate, hardware_efficiency, quantiles,
-                              reconcile, render_report, validate_bench)
-from repro_torch.obs.trace import (Tracer, count, current_tracer, emit, gauge,
-                             json_safe, monotonic_ns, span, timed_call,
-                             use_tracer)
+                              reconcile, render_report)
+from repro_torch.obs.trace import (Tracer, annotate, count, current_tracer,
+                                   emit, gauge, json_safe, monotonic_ns, span,
+                                   timed_call, use_tracer)
 
 __all__ = [
     "KINDS", "REQUEST_PHASES", "SCHEMA_VERSION", "TERMINAL_PHASES",
-    "Tracer", "aggregate", "count", "current_tracer", "emit", "gauge",
-    "hardware_efficiency", "json_safe", "monotonic_ns", "quantiles",
+    "Tracer", "aggregate", "annotate", "count", "current_tracer", "emit",
+    "gauge", "hardware_efficiency", "json_safe", "monotonic_ns", "quantiles",
     "read_jsonl", "reconcile", "render_report", "span", "timed_call",
-    "use_tracer", "validate_bench", "validate_event", "validate_events",
+    "use_tracer", "validate_event", "validate_events",
 ]

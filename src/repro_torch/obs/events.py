@@ -33,10 +33,11 @@ Kinds:
     request     serving-engine lifecycle event: ``name`` is the phase
                 (REQUEST_PHASES), ``uid`` the request id (null for
                 rejected-at-submit, which never got one).
-    train_step  one train-loop step: step index, host dispatch dur_ns
-                (no sync), optional tokens-per-step for throughput, and
-                metrics {loss, grad_norm, nonfinite_skips} resolved at
-                serialization time.
+    train_step  one train-loop step: step index, its host dur_ns (to
+                the end of the step's one wait for the device), optional
+                tokens-per-step for throughput, and metrics {loss,
+                grad_norm, nonfinite_skips} resolved at serialization
+                time.
     jit_entry   one call through a plan-keyed jit site: key (the interned
                 plan label), cache "miss"|"hit".
 

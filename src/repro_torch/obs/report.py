@@ -321,40 +321,3 @@ def render_report(events: list[dict]) -> str:
         lines.append("  reconcile: every request reached exactly one "
                      "terminal state")
     return "\n".join(lines)
-
-
-# ---------------------------------------------------------------------------
-# BENCH_serving.json schema
-# ---------------------------------------------------------------------------
-
-BENCH_SCHEMA_VERSION = 1
-
-_BENCH_ROW_FIELDS = ("preset", "plan", "requests", "tokens", "wall_s",
-                     "tokens_per_s", "latency_ms", "occupancy_mean",
-                     "jit_entries")
-
-
-def validate_bench(payload: dict) -> list[str]:
-    """Schema problems of a BENCH_serving.json payload (empty = valid):
-    every row keyed by its full serialized ExecutionPlan + the measured
-    latency/throughput/occupancy columns."""
-    problems: list[str] = []
-    if payload.get("schema") != BENCH_SCHEMA_VERSION:
-        problems.append(f"schema={payload.get('schema')!r}, expected "
-                        f"{BENCH_SCHEMA_VERSION}")
-    rows = payload.get("rows")
-    if not isinstance(rows, list) or not rows:
-        return problems + ["rows: missing or empty"]
-    for i, row in enumerate(rows):
-        for f in _BENCH_ROW_FIELDS:
-            if f not in row:
-                problems.append(f"rows[{i}]: missing {f!r}")
-        plan = row.get("plan")
-        if not (isinstance(plan, dict)
-                and {"kernels", "parallel", "memory", "duality"} <= set(plan)):
-            problems.append(f"rows[{i}]: plan is not a serialized "
-                            "ExecutionPlan")
-        lat = row.get("latency_ms", {})
-        if not (isinstance(lat, dict) and {"p50", "p95", "p99"} <= set(lat)):
-            problems.append(f"rows[{i}]: latency_ms lacks p50/p95/p99")
-    return problems

@@ -16,7 +16,10 @@ across NTP steps and the stream is diffable across runs up to durations).
 Events additionally carry a ``seq`` number assigned at emit time, which IS
 the deterministic ordering key: two runs of the same deterministic workload
 produce the same event sequence (kinds/names/attrs), differing only in the
-``*_ns`` fields.
+``*_ns`` fields. That clock is not the device trace's: while
+``torch.profiler`` records, each span also opens a ``record_function``
+range of its name, which the profiler stamps on its own clock beside the
+kernels the span's body launches.
 
 The device-aware timer (``timed_call``) separates host dispatch from device
 execution by synchronising the CUDA device of the call's tensor outputs:
@@ -47,6 +50,7 @@ port has one) are host-side sequential loops.
 from __future__ import annotations
 
 import json
+import sys
 import time
 from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
@@ -103,6 +107,18 @@ def _synchronize(device) -> None:
     torch.cuda.synchronize(device)
 
 
+def _profiler_range(name: str):
+    """An entered ``torch.profiler.record_function`` range named ``name``
+    while the torch profiler records, else None. torch is only looked up,
+    never imported: a process without it has no profiler running."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class Tracer:
     """In-memory event stream + counters. Build one per scenario (like a
     FaultInjector) and scope it with ``use_tracer``; see the module
@@ -115,6 +131,7 @@ class Tracer:
         self.events: list[dict] = []
         self.counters: dict[str, float] = {}
         self._span_stack: list[int] = []
+        self._span_attrs: list[dict] = []       # the open spans' attrs
         self._next_span = 0
         self._defs: dict[str, str] = {}          # interned value -> label
         self._def_counts: dict[str, int] = {}    # kind -> next index
@@ -136,13 +153,16 @@ class Tracer:
 
     @contextmanager
     def span(self, name: str, **attrs):
-        """Nestable span on the monotonic clock. Exception-safe: the span
-        event is emitted (``status="error"``) and the stack restored even
-        when the body raises; the exception propagates."""
+        """Nestable span on the monotonic clock, and a profiler range of
+        the same name while the torch profiler records. Exception-safe: the
+        span event is emitted (``status="error"``) and the stack restored
+        even when the body raises; the exception propagates."""
         span_id = self._next_span
         self._next_span += 1
         parent = self._span_stack[-1] if self._span_stack else None
         self._span_stack.append(span_id)
+        self._span_attrs.append(attrs)
+        rf = _profiler_range(name)
         t0 = self._now()
         status = "ok"
         try:
@@ -154,10 +174,20 @@ class Tracer:
             status = "error"
             raise
         finally:
+            t1 = self._now()
+            if rf is not None:
+                rf.__exit__(None, None, None)
             self._span_stack.pop()
+            self._span_attrs.pop()
             self.emit("span", name, span_id=span_id, parent_id=parent,
-                      t_start_ns=t0, dur_ns=self._now() - t0, status=status,
+                      t_start_ns=t0, dur_ns=t1 - t0, status=status,
                       attrs=dict(attrs))
+
+    def annotate(self, **attrs) -> None:
+        """Add ``attrs`` to the innermost open span (what its body learns,
+        such as a plan it chose); nothing when no span is open."""
+        if self._span_attrs:
+            self._span_attrs[-1].update(attrs)
 
     def timed_call(self, name: str, fn, *args,
                    attrs: Optional[dict] = None, **kw):
@@ -290,6 +320,13 @@ def span(name: str, **attrs):
     if tr is None:
         return _NULL_SPAN
     return tr.span(name, **attrs)
+
+
+def annotate(**attrs) -> None:
+    """Add ``attrs`` to the scoped tracer's innermost open span."""
+    tr = _TRACER.get()
+    if tr is not None:
+        tr.annotate(**attrs)
 
 
 def emit(kind: str, name: str, **fields) -> None:

@@ -9,7 +9,17 @@ the optimizer sees them and the old state is selected leafwise, so a healthy
 step is bit-identical with the guard on or off. A skipped step still
 advances ``state.step`` and reports ``nonfinite_skips = 1``. The selects of
 parameters and moments stay on the device; the optimizer's step count lives
-on the CPU, so selecting it waits for the gradient norm once per step.
+on the CPU, so selecting it waits for the gradient norm once per step: the
+step's one synchronise, queued after the parameters' selects and before the
+moments', so the host waits there for the whole step's device work queued
+so far.
+
+Spans (``repro_torch.obs``; no-ops with no tracer scoped): ``train.step``
+around a step, inside it ``train.forward`` (the loss), ``train.backward``
+(``torch.autograd.grad`` and the zero fill of unused leaves),
+``train.clip`` and ``train.optimizer`` (the guard's zeroing, the schedule,
+the update and the leafwise selects), which holds ``train.wait``: the
+guard's device-to-host copy of ``ok``.
 
 ``instrument_train_step`` wraps a step so that each call emits one obs
 ``train_step`` event when a tracer is scoped, and is the bare call when none
@@ -23,6 +33,7 @@ from typing import Callable
 import torch
 
 from repro_torch.layers.params import tree_leaves, tree_map
+from repro_torch.obs import trace as obs
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.train.state import TrainState, make_train_state
@@ -54,12 +65,17 @@ def make_train_step(
     def init_state(params) -> TrainState:
         return make_train_state(params, opt_init)
 
+    n_leaves = []       # the parameters' leaf count, found at first call
+
     def compute_grads(params, batch, rng):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = loss_fn(live, batch, rng)
-        leaves = tree_leaves(live)
-        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-        grads = tree_map(lambda p: _or_zeros(next(grads), p), live)
+        with obs.span("train.forward"):
+            loss, metrics = loss_fn(live, batch, rng)
+        with obs.span("train.backward"):
+            leaves = tree_leaves(live)
+            grads = iter(torch.autograd.grad(loss, leaves,
+                                             allow_unused=True))
+            grads = tree_map(lambda p: _or_zeros(next(grads), p), live)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 
@@ -74,6 +90,12 @@ def make_train_step(
             nonfinite_skips  1.0 when the guard discarded the update, else 0.0
         plus the loss's own metrics.
         """
+        if not n_leaves:
+            n_leaves.append(len(tree_leaves(state.params)))
+        with obs.span("train.step", leaves=n_leaves[0]):
+            return step_body(state, batch, rng)
+
+    def step_body(state: TrainState, batch, rng):
         if accum_steps == 1:
             loss, metrics, grads = compute_grads(state.params, batch, rng)
         else:
@@ -95,29 +117,35 @@ def make_train_step(
             loss = loss_sum / accum_steps
             metrics = {"loss": loss}
 
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        with obs.span("train.clip"):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
         metrics = dict(metrics)
         metrics.setdefault("loss", loss)
-        if guard_nonfinite:
-            ok = torch.isfinite(gnorm)
-            grads = tree_map(lambda g: torch.where(ok, g, torch.zeros_like(g)),
-                             grads)
-            metrics["nonfinite_skips"] = (~ok).float()
-        else:
-            # Guard off: the key is still reported, a 0 on the gradient
-            # norm's device like every other metric.
-            metrics["nonfinite_skips"] = torch.zeros((), dtype=torch.float32,
-                                                     device=gnorm.device)
-        lr = cosine_schedule(state.step, base_lr, warmup_steps, total_steps)
-        new_params, new_opt = opt_update(state.params, grads, state.opt_state,
-                                         lr, weight_decay=weight_decay)
-        if guard_nonfinite:
-            keep_new = lambda n, o: torch.where(ok, n, o)
-            new_params = tree_map(keep_new, new_params, state.params)
-            new_opt = type(new_opt)(
-                torch.where(ok.cpu(), new_opt.step, state.opt_state.step),
-                tree_map(keep_new, new_opt.m, state.opt_state.m),
-                tree_map(keep_new, new_opt.v, state.opt_state.v))
+        with obs.span("train.optimizer"):
+            if guard_nonfinite:
+                ok = torch.isfinite(gnorm)
+                grads = tree_map(
+                    lambda g: torch.where(ok, g, torch.zeros_like(g)), grads)
+                metrics["nonfinite_skips"] = (~ok).float()
+            else:
+                # Guard off: the key is still reported, a 0 on the gradient
+                # norm's device like every other metric.
+                metrics["nonfinite_skips"] = torch.zeros(
+                    (), dtype=torch.float32, device=gnorm.device)
+            lr = cosine_schedule(state.step, base_lr, warmup_steps,
+                                 total_steps)
+            new_params, new_opt = opt_update(state.params, grads,
+                                             state.opt_state, lr,
+                                             weight_decay=weight_decay)
+            if guard_nonfinite:
+                keep_new = lambda n, o: torch.where(ok, n, o)
+                new_params = tree_map(keep_new, new_params, state.params)
+                with obs.span("train.wait"):
+                    ok_host = ok.cpu()
+                new_opt = type(new_opt)(
+                    torch.where(ok_host, new_opt.step, state.opt_state.step),
+                    tree_map(keep_new, new_opt.m, state.opt_state.m),
+                    tree_map(keep_new, new_opt.v, state.opt_state.v))
         metrics.update({"grad_norm": gnorm, "lr": lr})
         return TrainState(state.step + 1, new_params, new_opt), metrics
 
@@ -133,7 +161,8 @@ def instrument_train_step(step_fn, *, tokens_per_step: float | None = None,
 
     The wrapper adds no device synchronise: it measures the host time of
     the call (a step of the port already waits once, for the gradient norm,
-    so this is close to the step's time) and records the selected metrics
+    in ``train.wait``, so this is close to the step's time) and records the
+    selected metrics
     as the step's 0-d tensors, resolved to floats when the tracer
     serializes, off the hot path. ``tokens_per_step`` (e.g. batch * n_res)
     rides along for throughput aggregation."""

@@ -186,18 +186,24 @@ def test_full_width_steps_track_the_reference():
 def test_trainer_cli(tmp_path, capsys):
     """``python -m repro_torch.launch.train --reduced --device cpu --steps
     3 --trace ... --ckpt-dir ...``: three steps, one ``train_step`` event
-    each with its tokens, a trace ``python -m repro_torch.obs report
-    --strict`` accepts, and a checkpoint that the port restores bit for
-    bit and the reference restores into its own train state (the same
-    keys and shapes, the decoder's stages under ``[i]``)."""
+    each with its tokens and the step's six spans, a trace ``python -m
+    repro_torch.obs report --strict`` accepts, and a checkpoint that the
+    port restores bit for bit and the reference restores into its own
+    train state (the same keys and shapes, the decoder's stages under
+    ``[i]``)."""
     trace, ckdir = tmp_path / "ev.jsonl", tmp_path / "ck"
     ttrain.main(["--arch", "llava-next-mistral-7b", "--reduced", "--device",
                  "cpu", "--steps", "3", "--batch", "2", "--seq", "16",
                  "--trace", str(trace), "--ckpt-dir", str(ckdir)])
     out = capsys.readouterr().out
-    assert "3 steps in" in out and "(3 events)" in out
+    # Each step: its train_step event and the step's six spans.
+    assert "3 steps in" in out and "(21 events)" in out
     events = [e for e in read_jsonl(str(trace)) if e["kind"] == "train_step"]
     assert len(events) == 3 and all(e["tokens"] == 32 for e in events)
+    spans = [e["name"] for e in read_jsonl(str(trace)) if e["kind"] == "span"]
+    assert sorted(spans) == sorted(3 * ["train.step", "train.forward",
+                                        "train.backward", "train.clip",
+                                        "train.optimizer", "train.wait"])
     assert obs_main(["report", str(trace), "--strict"]) == 0
     path = tckpt.latest_checkpoint(str(ckdir))
     assert path.endswith("ckpt_00000003.npz")

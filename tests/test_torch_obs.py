@@ -26,7 +26,6 @@ from repro_torch.obs import (
     reconcile,
     render_report,
     use_tracer,
-    validate_bench,
     validate_events,
 )
 from repro_torch.obs import events as t_events
@@ -147,20 +146,6 @@ def test_validator_rejects_malformed_events():
     del missing["value"]
     assert validate_events([missing])
     assert validate_events([ok, ok])                        # seq not increasing
-
-
-def test_validate_bench_schema():
-    row = {"preset": "default", "plan": preset("default").to_dict(),
-           "requests": 4, "tokens": 12.0, "wall_s": 1.0,
-           "tokens_per_s": 12.0,
-           "latency_ms": {"p50": 1.0, "p95": 2.0, "p99": 3.0},
-           "occupancy_mean": 2.0, "jit_entries": {}}
-    assert not validate_bench({"schema": 1, "rows": [row]})
-    assert validate_bench({"schema": 99, "rows": [row]})
-    assert validate_bench({"schema": 1, "rows": []})
-    assert validate_bench({"schema": 1, "rows": [{**row, "plan": "hash"}]})
-    no_lat = {**row, "latency_ms": {"p50": 1.0}}
-    assert validate_bench({"schema": 1, "rows": [no_lat]})
 
 
 def test_quantiles_and_reconcile_units():
