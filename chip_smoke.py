@@ -2255,8 +2255,8 @@ def long_phase(torch, tree):
 
 
 def long_kernel_phase(torch, timer, chunk: int):
-    """K4, K5, K7 and K8 at the r = 2048 main path's shapes and layouts
-    (bf16; K4 on one chunk of ``chunk`` triangle groups of fold (a)), each
+    """K4, K5 (triangle and MSA-row sites), K7 and K8 at the r = 2048 main
+    path's shapes and layouts (bf16; K4 on one chunk of ``chunk`` triangle groups of fold (a)), each
     whole on the card and held against its plain version on a slice of
     rows the plain version can hold: ms of the whole call beside its bound,
     the plain version's and the library call's ms on the slice."""
@@ -2319,6 +2319,29 @@ def long_kernel_phase(torch, timer, chunk: int):
                qb, kb, vb, attn_mask=am, scale=scale)),
            "SDPA, bias and mask summed beforehand", held)
     del qkv, q, k, v, out, want, qb, kb, vb, am
+
+    # K5 at the MSA-row site: (N = s sequences, S = r, H 8, D); the pair
+    # bias (1, 8, r, r) shared by all s (rep = s).
+    n, hr, held = s, 8, 4
+    qkv = randn((n, r, 3 * hr * d))
+    q, k, v = (qkv[..., i * hr * d:(i + 1) * hr * d].unflatten(-1, (hr, d))
+               for i in range(3))
+    rbias, mask = randn((1, hr, r, r)), key_mask(n, r)
+    out, _ = flash_attention_cuda(q, k, v, rbias, mask, scale)
+    sl = (q[:held], k[:held], v[:held], rbias, mask[:held], scale)
+    want, _ = ref.attention_ref(*sl)
+    err, rel = rel_err(out[:held], want)
+    qb, kb, vb = (t.transpose(1, 2).contiguous() for t in sl[:3])
+    am = (rbias + mask[:held].to(bf).view(held, 1, 1, r))
+    record("flash_attention_fwd", "r2048 MSA-row site", (n, r, r, hr, d),
+           err, rel, timer(lambda: flash_attention_cuda(q, k, v, rbias, mask,
+                                                        scale)),
+           roof.attention_cost(q, k, v, bias=rbias, mask=mask),
+           timer(lambda: ref.attention_ref(*sl)),
+           timer(lambda: F.scaled_dot_product_attention(
+               qb, kb, vb, attn_mask=am, scale=scale)),
+           "SDPA, bias and mask summed beforehand", held)
+    del qkv, q, k, v, rbias, out, want, qb, kb, vb, am
 
     # K4 on one chunk of the triangle sites under attention-oracle:
     # (N = chunk groups, H, r, r) scores, bias (1, H, r, r).

@@ -8,7 +8,8 @@ file name carries a hash of its source and flags, so an unchanged kernel is
 not rebuilt within one checkout.
 
 The launch counters live here too: each kernel wrapper adds one to its
-entry right after its kernel launched, and nowhere else.
+entry right after its kernel launched, and nowhere else; a launch that took
+one of a kernel's named paths also adds one to ``<kernel>.<path>``.
 
 A build runs under the ``kernels.build`` span (``repro_torch.obs``), whose
 ``kernels`` attribute names the sources compiled.
@@ -210,9 +211,13 @@ def entry(name: str):
     return fn
 
 
-def check(name: str, err: int) -> None:
-    """Raise on a launch the CUDA runtime refused; count it otherwise."""
+def check(name: str, err: int, path: str | None = None) -> None:
+    """Raise on a launch the CUDA runtime refused; count it otherwise, under
+    ``name`` and, for a launch that took the named ``path``, under
+    ``name.path`` too."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
     LAUNCHES[name] += 1
+    if path is not None:
+        LAUNCHES[f"{name}.{path}"] += 1

@@ -11,10 +11,13 @@ versions.
 
 The bf16 kernels run on tensor cores over tiles of ``TILE`` query rows and
 keys, with 16-byte asynchronous copies, and a block runs G consecutive
-groups n of one bias batch over one staged bias slice. The host-side
-choices around them are the plain functions below: ``fwd_groups`` and
-``bwd_groups`` (G), ``dbias_partials_shape`` (the backward's fp32 scratch)
-and ``copy_for_kernel`` (which strided views are copied first).
+groups n of one bias batch over one staged bias slice. Above ``MAX_STAGED``
+padded keys the forward streams the bias a tile at a time instead, and a
+block runs its G groups side by side over each bias tile (``streamed``).
+The host-side choices around them are the plain functions below:
+``fwd_groups`` and ``bwd_groups`` (G), ``dbias_partials_shape`` (the
+backward's fp32 scratch) and ``copy_for_kernel`` (which strided views are
+copied first).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ HEAD_DIMS = (16, 32)        # the Evoformer's head dim in MINI and FULL
 TILE = 64                   # bf16 kernels: query rows / keys per block and tile
 MAX_STAGED = 384            # widest bias slice (Sq or Skv padded to TILE) staged
 GROUP_CHOICES = (8, 4, 2, 1)
+STREAM_GROUP_CHOICES = (2, 1)      # the forward's streamed bias: 4 warps a group
+MAX_SMEM = 227 * 1024       # shared memory a block may ask for
 # Least grid a choice of G may leave, from blocks per SM x 132 SMs: the
 # forward's block stages 21 KB + its bias slice (4 blocks an SM at r = 256,
 # so about two waves); the backward's dq block also holds an fp32 slab of
@@ -56,12 +61,35 @@ def groups_per_block(rep: int, blocks: int, min_blocks: int) -> int:
     return 1
 
 
+def streamed(skv: int, rep: int | None) -> bool:
+    """Whether the bf16 forward streams its bias a tile at a time: there is
+    a bias and its (TILE x Skv) slice is too wide to stage whole."""
+    return rep is not None and _tiles(skv) * TILE > MAX_STAGED
+
+
+def stream_smem_bytes(d: int, groups: int) -> int:
+    """Shared memory of the streamed forward's block (its ``StreamTile``):
+    two stages, each G K and V tiles of TILE keys (rows of D + 8 bf16), one
+    (TILE x TILE + 8) bf16 bias tile and G fp32 key masks."""
+    kv = groups * TILE * (d + 8) * 2
+    return 2 * (2 * kv + TILE * (TILE + 8) * 2 + groups * TILE * 4)
+
+
 def fwd_groups(n: int, sq: int, skv: int, h: int, rep: int | None) -> int:
-    """G of the bf16 forward: 1 without a bias (``rep`` None) or where the
-    (TILE x Skv) bias slice is too wide to stage."""
-    if rep is None or _tiles(skv) * TILE > MAX_STAGED:
+    """G of the bf16 forward: 1 without a bias (``rep`` None); where the
+    bias is streamed, the largest of ``STREAM_GROUP_CHOICES`` that divides
+    ``rep``, leaves ``FWD_MIN_BLOCKS`` and fits its stages in ``MAX_SMEM``
+    at the widest head dim; else ``groups_per_block``."""
+    if rep is None:
         return 1
-    return groups_per_block(rep, _tiles(sq) * h * n, FWD_MIN_BLOCKS)
+    blocks = _tiles(sq) * h * n
+    if streamed(skv, rep):
+        for g in STREAM_GROUP_CHOICES:
+            if (rep % g == 0 and blocks // g >= FWD_MIN_BLOCKS
+                    and stream_smem_bytes(max(HEAD_DIMS), g) <= MAX_SMEM):
+                return g
+        return 1
+    return groups_per_block(rep, blocks, FWD_MIN_BLOCKS)
 
 
 def bwd_groups(n: int, sq: int, skv: int, h: int, rep: int | None) -> int:
@@ -100,10 +128,13 @@ def copy_for_kernel(t: torch.Tensor) -> bool:
 
 
 def _check_groups(name: str, groups: int, rep: int, n: int,
-                  staged: bool) -> None:
-    if groups < 1 or n % groups or rep % groups or (groups > 1 and not staged):
+                  choices: tuple[int, ...] | None) -> None:
+    """G must divide rep and N, and be one of ``choices`` (None: any)."""
+    if (groups < 1 or n % groups or rep % groups
+            or (choices is not None and groups not in choices)):
         raise ValueError(f"{name}: G = {groups} must divide rep = {rep} and "
-                         f"N = {n}, and be 1 where a bias slice is not staged")
+                         f"N = {n}, and be one of {choices or 'any'}: 1 "
+                         "without a staged or streamed bias")
 
 
 def _operand(fn: str, name: str, t: torch.Tensor, shape: tuple,
@@ -186,10 +217,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (out (N, Sq, H, D) in q's dtype, lse (N, H, Sq) fp32)."""
     fn = "flash_attention_cuda"
     n, sq, skv, h, d, rep, dev = _common(fn, q, k, bias, mask)
+    stream = streamed(skv, rep)
     if groups is None:
         groups = fwd_groups(n, sq, skv, h, rep)
     _check_groups(fn, groups, rep or 1, n,
-                  rep is not None and _tiles(skv) * TILE <= MAX_STAGED)
+                  STREAM_GROUP_CHOICES if stream
+                  else None if rep is not None else (1,))
     q, q_sn, q_ss = _operand(fn, "q", q, (n, sq, h, d), q.dtype, dev)
     k, k_sn, k_ss = _operand(fn, "k", k, (n, skv, h, d), q.dtype, dev)
     v, v_sn, v_ss = _operand(fn, "v", v, (n, skv, h, d), q.dtype, dev)
@@ -202,7 +235,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), lse.data_ptr(), q_sn, q_ss, k_sn, k_ss, v_sn, v_ss,
         n, sq, skv, h, d, rep or 1, groups, float(scale),
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q))
-    _build.check("flash_attention_fwd", err)
+    _build.check("flash_attention_fwd", err,
+                 "streamed_bias" if stream and q.dtype == torch.bfloat16
+                 else None)
     return out, lse
 
 
@@ -232,8 +267,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if groups is None:
         groups = bwd_groups(n, sq, skv, h, rep)
     _check_groups(fn, groups, rep or 1, n,
-                  rep is not None and max(_tiles(sq), _tiles(skv)) * TILE
-                  <= MAX_STAGED)
+                  None if rep is not None and max(_tiles(sq), _tiles(skv))
+                  * TILE <= MAX_STAGED else (1,))
     dt = q.dtype
     q, q_sn, q_ss = _operand(fn, "q", q, (n, sq, h, d), dt, dev)
     k, k_sn, k_ss = _operand(fn, "k", k, (n, skv, h, d), dt, dev)

@@ -142,6 +142,11 @@ FLASH_CASES = [
     (3, 33, 45, 2, 32, 3, True, True, None),      # rep 1
     (8, 70, 130, 2, 16, 2, True, True, 4),        # D 16 with G 4
     (2, 20, 600, 1, 32, 1, True, True, None),     # bias slice too wide to stage
+    # The streamed bias (Skv padded past 384), at the wrapper's G:
+    (64, 64, 2048, 32, 16, 1, True, True, None),  # Skv 2048, rep = N (G 2)
+    (3, 20, 450, 2, 32, 1, True, True, None),     # ragged, Skv % 8 != 0: elements
+    (1, 600, 600, 2, 32, 1, True, True, None),    # Sq 600, rep 1
+    (2, 70, 520, 2, 16, 1, True, False, None),    # bias without mask
 ]
 
 
@@ -171,9 +176,33 @@ def test_flash_attention_kernel(gen, n, sq, skv, h, d, nb, bias, mask, groups,
     out, lse = flash_attention_cuda(q, k, v, b, m, d ** -0.5, groups)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention_fwd"] == 1
+    # The bf16 kernel streams a bias wider than 384 keys, and counts it.
+    streamed = dtype == torch.bfloat16 and bias and skv > 384
+    assert _build.LAUNCHES["flash_attention_fwd.streamed_bias"] == streamed
     want, want_lse = ref.attention_ref(q, k, v, b, m, d ** -0.5)
     _close(out, want, tol)
     _close(lse, want_lse, 1e-4)
+
+
+@pytest.mark.parametrize("n,sq,skv,nb,mask", [
+    (8, 130, 2048, 1, True),      # rep = N
+    (8, 40, 450, 2, True),        # rep 4, Skv % 8 != 0: element copies
+    (4, 64, 520, 1, False),       # no mask
+])
+def test_flash_attention_streamed_groups_agree(gen, n, sq, skv, nb, mask):
+    """The streamed bias path at G 1 and 2 (groups side by side over one
+    bias tile) gives the same bits: a row's arithmetic does not depend on
+    which groups share its block."""
+    q, k, v, b, m = _flash_inputs(gen, n, sq, skv, 2, 32, nb, True, mask,
+                                  torch.bfloat16)
+    _build.reset_launches()
+    runs = [flash_attention_cuda(q, k, v, b, m, 0.2, g) for g in (1, 2)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_fwd.streamed_bias"] == 2
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+    want, _ = ref.attention_ref(q, k, v, b, m, 0.2)
+    _close(runs[0][0], want, 2e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

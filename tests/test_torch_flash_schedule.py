@@ -35,8 +35,9 @@ from torch_parity import MODULE_TOL, assert_close, both, normal
 # ---------------------------------------------------------------------------
 
 # (name, N, Sq, Skv, H, rep or None, forward G, backward G): the main path's
-# calls at FULL width (MSA row, MSA column, triangle start/end; r = 256 and
-# 384, s = 128) and edge shapes.
+# calls at FULL width (MSA row, MSA column, triangle start/end; r = 256,
+# 384 and 2048, s = 128) and edge shapes. Above 384 keys the forward
+# streams its bias and runs G groups side by side.
 SCHEDULES = [
     ("msa-row-r256", 128, 256, 256, 8, 128, 4, 8),
     ("msa-row-r384", 128, 384, 384, 8, 128, 4, 8),
@@ -49,6 +50,8 @@ SCHEDULES = [
     ("rep12", 1536, 256, 256, 4, 12, 4, 4),
     ("skv-past-staging", 256, 64, 600, 4, 256, 1, 1),
     ("sq-past-staging", 256, 600, 64, 4, 256, 8, 1),
+    ("triangle-r2048", 2048, 2048, 2048, 4, 2048, 2, 1),
+    ("msa-row-r2048", 128, 2048, 2048, 8, 128, 2, 1),
 ]
 
 
@@ -61,6 +64,9 @@ def test_groups_per_block(name, n, sq, skv, h, rep, g_fwd, g_bwd):
     for g, kind in ((got_fwd, "fwd"), (got_bwd, "bwd")):
         assert g in fa.GROUP_CHOICES
         assert n % g == 0 and (rep or 1) % g == 0, kind
+    if fa.streamed(skv, rep):
+        assert got_fwd in fa.STREAM_GROUP_CHOICES
+        assert fa.stream_smem_bytes(max(fa.HEAD_DIMS), got_fwd) <= fa.MAX_SMEM
     # A G above 1 leaves the grid its least number of blocks.
     if got_fwd > 1:
         assert fa._tiles(sq) * h * n // got_fwd >= fa.FWD_MIN_BLOCKS
@@ -91,12 +97,16 @@ def test_dbias_scratch_size_at_the_main_path():
 
 
 def test_groups_checked():
-    fa._check_groups("k", 4, 8, 16, True)
-    for groups, rep, n, staged in ((3, 8, 16, True), (4, 2, 16, True),
-                                   (4, 8, 6, True), (2, 8, 16, False),
-                                   (0, 1, 4, True)):
+    """Staged: any G dividing rep and N; the forward's streamed bias: G 2
+    or 1; otherwise (no bias, the backward's unstaged slices) only 1."""
+    fa._check_groups("k", 4, 8, 16, None)
+    fa._check_groups("k", 2, 8, 16, fa.STREAM_GROUP_CHOICES)
+    for groups, rep, n, choices in ((3, 8, 16, None), (4, 2, 16, None),
+                                    (4, 8, 6, None), (2, 8, 16, (1,)),
+                                    (4, 8, 16, fa.STREAM_GROUP_CHOICES),
+                                    (0, 1, 4, None)):
         with pytest.raises(ValueError, match="G ="):
-            fa._check_groups("k", groups, rep, n, staged)
+            fa._check_groups("k", groups, rep, n, choices)
 
 
 def _qkv_buffer(n, s, h, d, extra=0, offset=0):
